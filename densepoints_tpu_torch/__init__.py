@@ -1,0 +1,29 @@
+"""densepoints-tpu on PyTorch and CUDA: the PMVS densification pipeline
+(seed -> optimize -> expand -> filter -> export) for NVIDIA GPUs.
+
+The package mirrors the layout and function names of the JAX package
+`densepoints_tpu`, which stays the numerical reference:
+
+  core/       batched cameras, photometric scores
+  geometry/   fundamental matrices, epipolar lines, masked DLT triangulation
+  ops/        warp/sampling, the all-views warp+NCC scoring pass (a CUDA
+              kernel on the GPU, plain torch on the CPU), batched Nelder-Mead
+  features/   Harris detector, BRIEF descriptors, Hamming matching, tracks
+  pmvs/       patch state, visibility, optimization, organizer, expansion,
+              filtering, the `densify` driver
+  io/         scene JSON reader, PLY
+  csrc/       CUDA C++ sources, built with nvcc at first use
+
+Tensors live on an explicit `device` (`densify(..., device=...)`,
+`load_scene(..., device=...)`, `cli --device`).
+"""
+
+import torch as _torch
+
+__version__ = "0.1.0"
+
+# f32 geometry stays f32: projective geometry computed in TF32 (about three
+# decimal digits) moves pixel coordinates by whole pixels. Both matmul and
+# cuDNN TF32 are turned off at import.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False

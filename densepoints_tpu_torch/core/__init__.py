@@ -1,0 +1,6 @@
+from densepoints_tpu_torch.core.cameras import (
+    Cameras,
+    decompose_projection_matrix,
+    is_inside,
+)
+from densepoints_tpu_torch.core.scores import NCC_MIN_DENOM, ncc_score

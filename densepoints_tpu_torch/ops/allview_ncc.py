@@ -1,0 +1,243 @@
+"""The all-views warp+NCC scoring pass: (B, V) NCC against the anchor view.
+
+`allview_scores` is the one photometric primitive of the main path: every
+`filter_by_error` call and every Nelder-Mead objective evaluation goes
+through it. For patch b the anchor is its first visible view;
+scores[b, v] is NCC(anchor texture, view-v texture) for every visible
+non-anchor view with a valid warp (all 4 corners strictly inside the view)
+while the anchor's warp is valid too, and -1 everywhere else (the anchor's
+own column, invisible views, rows with no visible view).
+
+On a CUDA tensor the wrapper launches the hand-written kernel in
+`csrc/allview_ncc.cu` (built with nvcc for sm_90a at first use, bound with
+ctypes) or raises. On a CPU tensor it runs `allview_scores_plain`, the
+plain torch version of the same contract. `KERNEL_LAUNCHES` and
+`PLAIN_CALLS` count which path ran.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from densepoints_tpu_torch.core.cameras import Cameras
+from densepoints_tpu_torch.core.scores import NCC_MIN_DENOM
+from densepoints_tpu_torch.ops.warp import patch_frames, patch_textures
+
+__all__ = [
+    "allview_scores",
+    "allview_scores_plain",
+    "allview_scores_cuda",
+    "build_kernel",
+    "KERNEL_LAUNCHES",
+    "PLAIN_CALLS",
+]
+
+KERNEL_LAUNCHES = 0  # kernel launches, counted where the kernel launches
+PLAIN_CALLS = 0  # calls answered by the plain torch version (CPU tensors)
+
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "allview_ncc.cu"
+_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+            "the all-views NCC kernel is built from source at first use"
+        )
+    return str(path)
+
+
+def build_kernel() -> Path:
+    """Compile csrc/allview_ncc.cu into _build/, keyed by a hash of the
+    source and flags; returns the shared library's path."""
+    src = _SOURCE.read_bytes()
+    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = _BUILD_DIR / f"liballview_ncc_{key}.so"
+    if out.exists():
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_kernel()))
+            fn = lib.allview_ncc_launch
+            vp, i64 = ctypes.c_void_p, ctypes.c_int64
+            fn.argtypes = [
+                vp, i64, i64, i64,  # images, V, H, W
+                vp, vp, vp, vp, vp,  # K, R, C, width, height
+                vp, vp, vp, vp,  # position, sx, sy, vis
+                i64, ctypes.c_int,  # B, k
+                vp, vp, vp, vp,  # scores, anchor, anchor_ok, stream
+            ]
+            fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def _check(name, t, device, dtype, shape):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def allview_scores_cuda(
+    images: torch.Tensor,
+    K: torch.Tensor,
+    R: torch.Tensor,
+    C: torch.Tensor,
+    width: torch.Tensor,
+    height: torch.Tensor,
+    position: torch.Tensor,
+    sx: torch.Tensor,
+    sy: torch.Tensor,
+    vis: torch.Tensor,
+    texture_size: int,
+):
+    """Launch the CUDA kernel on the current stream.
+
+    images (V, H, W) f32; K, R (V, 3, 3) f32; C (V, 3) f32; width, height
+    (V,) int32; position, sx, sy (B, 3) f32; vis (B, V) bool; all
+    contiguous on one CUDA device. Returns (scores (B, V) f32, anchor (B,)
+    int64, anchor_ok (B,) bool).
+    """
+    global KERNEL_LAUNCHES
+    dev = images.device
+    if dev.type != "cuda":
+        raise ValueError(f"allview_scores_cuda needs CUDA tensors, got {dev}")
+    V, H, W = images.shape
+    B = position.shape[0]
+    k = int(texture_size)
+    if k < 1 or 2 * k * k * 4 > 48 * 1024:
+        raise ValueError(f"texture_size {k} outside the kernel's 1..78")
+    if H < 2 or W < 2:
+        raise ValueError(f"image stack {tuple(images.shape)} below 2 x 2")
+    _check("images", images, dev, torch.float32, (V, H, W))
+    _check("K", K, dev, torch.float32, (V, 3, 3))
+    _check("R", R, dev, torch.float32, (V, 3, 3))
+    _check("C", C, dev, torch.float32, (V, 3))
+    _check("width", width, dev, torch.int32, (V,))
+    _check("height", height, dev, torch.int32, (V,))
+    for name, t in (("position", position), ("sx", sx), ("sy", sy)):
+        _check(name, t, dev, torch.float32, (B, 3))
+    _check("vis", vis, dev, torch.bool, (B, V))
+    scores = torch.empty((B, V), dtype=torch.float32, device=dev)
+    anchor = torch.empty((B,), dtype=torch.int64, device=dev)
+    anchor_ok = torch.empty((B,), dtype=torch.bool, device=dev)
+    if B == 0:
+        return scores, anchor, anchor_ok
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+    KERNEL_LAUNCHES += 1
+    err = lib.allview_ncc_launch(
+        images.data_ptr(), V, H, W,
+        K.data_ptr(), R.data_ptr(), C.data_ptr(),
+        width.data_ptr(), height.data_ptr(),
+        position.data_ptr(), sx.data_ptr(), sy.data_ptr(), vis.data_ptr(),
+        B, k,
+        scores.data_ptr(), anchor.data_ptr(), anchor_ok.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"allview_ncc kernel launch failed: CUDA error {err}")
+    return scores, anchor, anchor_ok
+
+
+def allview_scores_plain(
+    images: torch.Tensor,
+    cameras: Cameras,
+    position: torch.Tensor,
+    normal: torch.Tensor,
+    ref: torch.Tensor,
+    vis: torch.Tensor,
+    texture_size: int,
+    frames=None,
+):
+    """Plain torch version of the (B, V) contract (gather-based sampling
+    of every patch in every view through `patch_textures`)."""
+    B, V = vis.shape
+    k = texture_size
+    n = float(k * k)
+    tex, valid = patch_textures(
+        images, cameras, position, normal, ref, vis, k, frames=frames
+    )  # valid = corner-valid & vis
+    flat = tex.reshape(B, V, k * k).to(torch.float32)
+    anchor = torch.argmax(vis.to(torch.uint8), dim=1)
+    has = vis.any(dim=1)
+    bidx = torch.arange(B, device=vis.device)
+    aflat = flat[bidx, anchor]  # (B, k*k)
+    aok = valid[bidx, anchor] & has
+    cam_ = aflat - aflat.mean(dim=1, keepdim=True)
+    sa = torch.sqrt((cam_ * cam_).sum(dim=1) / n)
+    ct = flat - flat.mean(dim=2, keepdim=True)
+    st = torch.sqrt((ct * ct).sum(dim=2) / n)
+    cov = (ct * cam_[:, None, :]).sum(dim=2) / n
+    den = torch.clamp_min(sa[:, None] * st, NCC_MIN_DENOM)
+    cols = torch.arange(V, device=vis.device)[None, :]
+    payload = vis & (cols != anchor[:, None])
+    scores = torch.where(payload & valid & aok[:, None], cov / den, -1.0)
+    return scores, anchor, aok
+
+
+def allview_scores(
+    images: torch.Tensor,
+    cameras: Cameras,
+    position: torch.Tensor,
+    normal: torch.Tensor,
+    ref: torch.Tensor,
+    vis: torch.Tensor,
+    texture_size: int,
+):
+    """(scores (B, V), anchor (B,), anchor_ok (B,)): the CUDA kernel for
+    CUDA tensors, the plain torch version for CPU tensors."""
+    global PLAIN_CALLS
+    frames = patch_frames(cameras, position, normal, ref, texture_size)
+    if images.device.type == "cpu":
+        PLAIN_CALLS += 1
+        return allview_scores_plain(
+            images, cameras, position, normal, ref, vis, texture_size,
+            frames=frames,
+        )
+    sx, sy = frames
+    return allview_scores_cuda(
+        images, cameras.K.contiguous(), cameras.R.contiguous(),
+        cameras.C.contiguous(), cameras.width, cameras.height,
+        position.contiguous(), sx.contiguous(), sy.contiguous(),
+        vis.contiguous(), texture_size,
+    )

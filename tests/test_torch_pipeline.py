@@ -1,0 +1,136 @@
+"""End-to-end densify() of the port vs the JAX package on one plane scene.
+
+The clouds are not compared point for point: last-bit float differences
+can flip Nelder-Mead accept decisions and so which candidates win a cell.
+Both must reconstruct the plane z = 0 (median |z| < 0.05 at scene scale
+~5) with final patch counts within 15% of each other.
+"""
+import json
+
+import jax.numpy as jnp  # noqa: F401  (keeps jax on the CPU backend here)
+import numpy as np
+import pytest
+
+from densepoints_tpu.config import ExpandConfig as JaxExpandConfig
+from densepoints_tpu.config import MatchingConfig as JaxMatchingConfig
+from densepoints_tpu.config import OptimizeConfig as JaxOptimizeConfig
+from densepoints_tpu.config import PipelineConfig as JaxPipelineConfig
+from densepoints_tpu.io import load_scene as jax_load_scene
+from densepoints_tpu.pmvs.pipeline import densify as jax_densify
+from densepoints_tpu_torch import cli
+from densepoints_tpu_torch.config import (
+    BAConfig,
+    ExpandConfig,
+    MatchingConfig,
+    OptimizeConfig,
+    PipelineConfig,
+)
+from densepoints_tpu_torch.io import load_scene, read_ply
+from densepoints_tpu_torch.ops import allview_ncc
+from densepoints_tpu_torch.pmvs.pipeline import densify
+from tests.synthetic import TexturedPlaneScene
+
+
+@pytest.fixture(scope="module")
+def plane_scene(tmp_path_factory):
+    from PIL import Image
+
+    tmp = tmp_path_factory.mktemp("plane")
+    rng = np.random.default_rng(0)
+    scene = TexturedPlaneScene(rng, num_views=5, width=160, height=120)
+    views = []
+    for v in range(5):
+        img = scene.render(v).clip(0, 255).astype(np.uint8)
+        Image.fromarray(img).save(tmp / f"view_{v}.png")
+        views.append(
+            {"filename": f"view_{v}.png", "projectionMatrix": scene.P[v].tolist()}
+        )
+    path = tmp / "scene.json"
+    path.write_text(json.dumps({"imagesPath": str(tmp), "views": views}))
+    return path
+
+
+def _config():
+    return PipelineConfig(
+        matching=MatchingConfig(max_keypoints_per_view=384),
+        optimize=OptimizeConfig(max_iterations=40),
+        expand=ExpandConfig(max_rounds=2),
+    )
+
+
+@pytest.fixture(scope="module")
+def port_result(plane_scene):
+    plain = allview_ncc.PLAIN_CALLS
+    result = densify(load_scene(plane_scene, device="cpu"), _config(),
+                     device="cpu")
+    assert allview_ncc.PLAIN_CALLS > plain  # CPU tensors: the plain path
+    return result
+
+
+def test_densify_matches_jax(plane_scene, port_result):
+    jcfg = JaxPipelineConfig(
+        matching=JaxMatchingConfig(max_keypoints_per_view=384),
+        optimize=JaxOptimizeConfig(max_iterations=40),
+        expand=JaxExpandConfig(max_rounds=2),
+    )
+    want = jax_densify(jax_load_scene(plane_scene), jcfg)
+    n_jax, n_port = want.patches.capacity, port_result.patches.capacity
+    z_jax = np.median(np.abs(want.positions[:, 2]))
+    z_port = np.median(np.abs(port_result.positions[:, 2]))
+    print(f"final patches: jax {n_jax}, port {n_port}; median |z|: jax "
+          f"{z_jax:.5f}, port {z_port:.5f}")
+    assert n_port >= 50
+    assert z_jax < 0.05 and z_port < 0.05
+    assert abs(n_port - n_jax) <= 0.15 * n_jax
+    assert set(port_result.metrics.times) >= {
+        "seed", "seed_filter", "seed_optimize", "expand", "filter", "color"
+    }
+
+
+def test_ply_round_trip(tmp_path, port_result):
+    for binary in (True, False):
+        out = tmp_path / f"cloud_{binary}.ply"
+        port_result.save_ply(out, binary=binary)
+        cloud = read_ply(out)
+        np.testing.assert_allclose(
+            cloud["positions"], port_result.positions, atol=1e-5
+        )
+        np.testing.assert_allclose(
+            cloud["normals"], port_result.normals, atol=1e-5
+        )
+        np.testing.assert_array_equal(cloud["colors"], port_result.colors)
+    assert port_result.colors.max() > 0
+
+
+def test_cli_main(tmp_path, plane_scene):
+    settings = tmp_path / "settings.json"
+    settings.write_text(json.dumps({
+        "matching": {"max_keypoints_per_view": 256},
+        "optimize": {"max_iterations": 30},
+        "expand": {"max_rounds": 1},
+    }))
+    out = tmp_path / "out.ply"
+    rc = cli.main(["-i", str(plane_scene), "-s", str(settings), "-o",
+                   str(out), "--ascii", "--device", "cpu"])
+    assert rc == 0
+    assert len(read_ply(out)["positions"]) > 10
+
+
+@pytest.mark.parametrize("change", [
+    {"ba": BAConfig(enable=True)},
+    {"matching": MatchingConfig(detector="fast")},
+    {"matching": MatchingConfig(matcher="epipolar")},
+    {"expand": ExpandConfig(prescreen="claim")},
+], ids=["ba", "fast", "epipolar", "prescreen"])
+def test_branches_outside_the_slice_raise(plane_scene, change):
+    config = _config().replace(**change)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        densify(load_scene(plane_scene, device="cpu"), config, device="cpu")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--distributed"], ["--mesh", "m.ply"], ["--partition", "clustered"],
+], ids=["distributed", "mesh", "clustered"])
+def test_cli_flags_outside_the_slice_raise(plane_scene, flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["-i", str(plane_scene), *flags])
