@@ -2,25 +2,50 @@
 """Smoke run of the PyTorch port (`densepoints_tpu_torch`) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --time-allview
 
 Phases, each printing its own lines; any failure exits non-zero and prints
 no result line:
   1. device: the card's name and `nvidia-smi` name/power limit (a CUDA card
      is required; there is no CPU fallback);
-  2. build: compiles every CUDA kernel of the main path from the sources in
-     this checkout (nvcc, sm_90a) and prints the build seconds;
-  3. kernel vs plain: the all-views warp+NCC kernel against its plain torch
+  2. build: compiles every CUDA kernel of the package from the sources in
+     this checkout (one nvcc call, sm_90a) and prints the build seconds;
+  3. all-views kernel vs plain: `ops.allview_ncc` against its plain torch
      version on the card at the refine shape (8 views of 480 x 640, 4096
      patches, k = 11 and 16, plus mixed-visibility, no-visibility and
      off-frustum rows) and a DTU shape (49 views of 1600 x 1200, 16384
      patches, ~25 visible views each, k = 16): scores within 1e-4, equal
      anchors, equal sentinel placement; CUDA-event times of both;
-  4. main path: `densepoints_tpu_torch.cli.main` on a 12-view 512 x 384
+  4. row-wise NCC kernel vs plain: `ops.ncc` at (32768, 121) and
+     (262144, 256), maskless and masked (with empty-mask rows): within
+     1e-5, equal sentinels;
+  5. slot kernel vs plain: `ops.warp_ncc` at the refine shape (8 slots,
+     k = 11 and 16) and the DTU shape (4 anchor-pinned chunks of 16 slots,
+     k = 16): scores within 1e-4, equal sentinel placement;
+  6. the slot-scoring path: `pmvs.patch_ncc_scores` and the chunked
+     `photometric_objective` through the slot kernel ("auto", "fused") and
+     through torch gathers + the row-wise NCC kernel ("xla"), held against
+     each other and against the all-views objective at the refine and DTU
+     shapes, then 30 Nelder-Mead iterations on the chunked objective; every
+     launch counter set to 0 just before;
+  7. main path: `densepoints_tpu_torch.cli.main` on a 12-view 512 x 384
      textured-sphere scene written as PNG files + scene JSON, with every
      launch counter set to 0 just before; checks the counters, the PLY, the
      patch count and the radial error against the analytic sphere.
+Each kernel's time stands beside its bound: the larger of the bytes it must
+move (every input read once, every output written once; of the image stack
+no more than the 4 taps of every texel this run's data samples) over
+3.35 TB/s and the f32 operations the function needs on this run's data over
+67 TFLOP/s (H100 SXM data sheet).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
+
+With `--time-allview` the script only builds the kernels and prints one
+JSON line of all-views kernel times (three medians of 50 CUDA-event timings
+at the refine k = 11, k = 16 and DTU k = 16 shapes). It takes the package
+from the directory it lies in, so a copy of it placed in a checkout of
+another commit times that commit's kernel: run the two in turns (parent,
+change, change, parent) within one job to compare them on one card.
 """
 from __future__ import annotations
 
@@ -34,7 +59,23 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SCORE_ATOL = 1e-4  # f32 kernel vs f32 plain: summation order only
 BORDER_PX = 1e-3  # sentinel flips allowed only this close to a border
+NCC_ATOL = 1e-5  # row-wise NCC, f32 kernel vs f32 plain: summation order
+OBJ_ATOL = 5e-4  # chunked vs all-views objective: two derivations, f32
 SPHERE_RADIUS = 150.0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores, published
+# f32 operations the function needs for one warped texel, whatever a kernel
+# body spends: the projection is affine in the texel's (column, row) before
+# the division, h = A + c B + r C with A, B, C fixed per (patch, view), so
+# 6 fused multiply-adds (12) and 2 divisions (14 in all); clamps and floors
+# 10; bilinear weights and taps 15; mean / variance / covariance sums 8.
+TEXEL_FLOPS = 47
+# Per texture, A, B and C: three 3 x 3 products with the view's K R (45),
+# one subtraction of the centre (3) and two scalings by 2 / k (6).
+TEXTURE_FLOPS = 54
+# Row-wise NCC, per element: two sums, two centrings, three products and
+# three sums (10); the mask adds five multiplies and a count (15).
+NCC_ELEMENT_FLOPS = {False: 10, True: 15}
 
 
 class SmokeFailure(Exception):
@@ -66,12 +107,40 @@ def phase_device():
 
 
 def phase_build():
+    """One nvcc call builds every kernel (allview_ncc, slot_ncc, ncc_pairs)
+    into one library; the bindings fail later if a symbol is missing."""
     from densepoints_tpu_torch.ops import allview_ncc
 
     t0 = time.perf_counter()
     lib = allview_ncc.build_kernel()
     dt = time.perf_counter() - t0
     print(f"[build] {lib.relative_to(ROOT)} in {dt:.2f} s", flush=True)
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card could take."""
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * flops / F32_FLOPS_PER_S
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def _warp_bound(images, others, textures, k):
+    """Bound of a warp+NCC kernel that sampled `textures` k x k textures:
+    of the image stack it must read no more than 4 f32 taps per texel, and
+    no more than the stack once; `others` are the remaining inputs and the
+    outputs, moved once each."""
+    image_bytes = min(_nbytes(images), textures * k * k * 4 * 4)
+    flops = textures * (k * k * TEXEL_FLOPS + TEXTURE_FLOPS)
+    return _bound(image_bytes + _nbytes(*others), flops)
+
+
+def _result(err, ms, bound):
+    return {"max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound[0], "bound_by": bound[1]}
 
 
 def _look_at(C):
@@ -165,6 +234,7 @@ def _corner_margin(cams, pos, frames, b, v):
 
 
 def _time_ms(fn, reps=20):
+    """Median CUDA-event milliseconds of `reps` calls (call it warm)."""
     import torch
 
     times = []
@@ -178,6 +248,14 @@ def _time_ms(fn, reps=20):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def _allview_kargs(cams, images, pos, frames, vis, k):
+    """Arguments of `allview_scores_cuda` for one input set."""
+    sx, sy = frames
+    return (images, cams.K.contiguous(), cams.R.contiguous(),
+            cams.C.contiguous(), cams.width, cams.height, pos.contiguous(),
+            sx.contiguous(), sy.contiguous(), vis.contiguous(), k)
 
 
 def compare_kernel(label, cams, images, pos, nrm, ref, vis, k):
@@ -208,42 +286,305 @@ def compare_kernel(label, cams, images, pos, nrm, ref, vis, k):
     check(bool(torch.isfinite(sk).all()), f"{label}: non-finite scores")
     # Times of the kernel and of the plain version on the same frames,
     # then of the whole wrapper (frames in torch + kernel).
-    sx, sy = frames
-    kargs = (images, cams.K.contiguous(), cams.R.contiguous(),
-             cams.C.contiguous(), cams.width, cams.height, pos.contiguous(),
-             sx.contiguous(), sy.contiguous(), vis.contiguous(), k)
+    kargs = _allview_kargs(cams, images, pos, frames, vis, k)
     runs = {
         "kernel": lambda: allview_ncc.allview_scores_cuda(*kargs),
         "plain": lambda: allview_ncc.allview_scores_plain(*args,
                                                           frames=frames),
         "wrapper": lambda: allview_ncc.allview_scores(*args),
     }
+    ms = _time_runs(runs)
+    B, V = vis.shape
+    # Textures this run's data makes the kernel sample: one per scored slot
+    # and one per valid anchor.
+    textures = int((sk != -1).sum()) + int(okk.sum())
+    bound = _warp_bound(images, (*kargs[1:10], sk, ak, okk), textures, k)
+    print(f"[allview_ncc] {label}: B={B} V={V} k={k} slots={int(vis.sum())} "
+          f"scored={int(both.sum())} max_abs_err={err:.3e} "
+          f"sentinel_flips={len(flips)} kernel_ms={ms['kernel']:.4f} "
+          f"plain_ms={ms['plain']:.4f} wrapper_ms={ms['wrapper']:.4f} "
+          f"bound_ms={bound[0]:.5f} ({bound[1]})", flush=True)
+    return _result(err, ms, bound)
+
+
+def _time_runs(runs, reps=20):
     for fn in runs.values():  # warm
         fn()
         fn()
-    ms = {name: _time_ms(fn) for name, fn in runs.items()}
-    B, V = vis.shape
-    print(f"[kernel] {label}: B={B} V={V} k={k} slots={int(vis.sum())} "
+    return {name: _time_ms(fn, reps) for name, fn in runs.items()}
+
+
+def compare_ncc_pairs(N, L, masked, device):
+    """The row-wise NCC kernel vs plain on seeded (N, L) pairs."""
+    import torch
+
+    from densepoints_tpu_torch.ops import ncc
+
+    gen = torch.Generator(device=device).manual_seed(N + L + int(masked))
+    rand = lambda: torch.rand((N, L), generator=gen, device=device)  # noqa: E731
+    a = rand() * 255.0
+    b = 0.6 * a + 0.4 * 255.0 * rand()
+    a[2] = 7.0  # a flat row: the 0.1 clamp decides
+    mask = None
+    if masked:
+        mask = (rand() > 0.3).to(torch.float32)
+        mask[::1000] = 0.0  # rows with an empty mask: the -1 sentinel
+    label = f"N={N} L={L} {'masked' if masked else 'maskless'}"
+    got = ncc.ncc_pairs(a, b, mask)
+    want = ncc.ncc_pairs_plain(a, b, mask)
+    torch.cuda.synchronize()
+    check(got.shape == (N,) and got.dtype == torch.float32, f"{label}: shape")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite scores")
+    check(bool(((got == -1) == (want == -1)).all()),
+          f"{label}: sentinel placement differs")
+    if masked:
+        check(int((got == -1).sum()) == len(range(0, N, 1000)),
+              f"{label}: empty-mask rows are not exactly the -1 rows")
+    err = float((got - want).abs().max())
+    check(err <= NCC_ATOL, f"{label}: max |kernel - plain| {err:.3e}")
+    ms = _time_runs({
+        "kernel": lambda: ncc.ncc_pairs_cuda(a, b, mask),
+        "plain": lambda: ncc.ncc_pairs_plain(a, b, mask),
+    })
+    inputs = (a, b) if mask is None else (a, b, mask)
+    bound = _bound(_nbytes(*inputs, got), N * L * NCC_ELEMENT_FLOPS[masked])
+    print(f"[ncc_pairs] {label}: max_abs_err={err:.3e} "
+          f"kernel_ms={ms['kernel']:.4f} plain_ms={ms['plain']:.4f} "
+          f"bound_ms={bound[0]:.5f} ({bound[1]})", flush=True)
+    return _result(err, ms, bound)
+
+
+def compare_slot_kernel(label, cams, images, pos, nrm, ref, view_ids, ok, k,
+                        plain_reps=20):
+    """The slot kernel vs plain on one (view_ids, ok) slot table."""
+    import torch
+
+    from densepoints_tpu_torch.ops import warp_ncc
+    from densepoints_tpu_torch.ops.warp import patch_frames
+
+    args = (images, cams, pos, nrm, ref, view_ids, ok, k)
+    sk = warp_ncc.slot_scores(*args)
+    sp = warp_ncc.slot_scores_plain(*args)
+    torch.cuda.synchronize()
+    flips = ((sk == -1) != (sp == -1)).nonzero().tolist()
+    frames = patch_frames(cams, pos, nrm, ref, k)
+    for b, m in flips:
+        # A flip of slot 0 flips its whole row: the border is slot 0's.
+        views = {int(view_ids[b, m]), int(view_ids[b, 0])}
+        margin = min(_corner_margin(cams, pos, frames, b, v) for v in views)
+        print(f"  [{label}] sentinel differs at (patch {b}, slot {m}): "
+              f"kernel {float(sk[b, m]):.6f} plain {float(sp[b, m]):.6f}, "
+              f"corner {margin:.2e} px from the border", flush=True)
+        check(margin < BORDER_PX,
+              f"{label}: sentinel placement differs away from a border")
+    both = (sk != -1) & (sp != -1)
+    err = float((sk - sp)[both].abs().max()) if bool(both.any()) else 0.0
+    check(err <= SCORE_ATOL, f"{label}: max |kernel - plain| {err:.3e}")
+    check(bool(torch.isfinite(sk).all()), f"{label}: non-finite scores")
+    check(bool((sk[~ok] == -1).all()), f"{label}: a slot without ok scored")
+    sx, sy = frames
+    kargs = (images, cams.K.contiguous(), cams.R.contiguous(),
+             cams.C.contiguous(), cams.width, cams.height, pos.contiguous(),
+             sx.contiguous(), sy.contiguous(), view_ids.contiguous(),
+             ok.contiguous(), k)
+    ms = {
+        **_time_runs({
+            "kernel": lambda: warp_ncc.slot_scores_cuda(*kargs),
+            "wrapper": lambda: warp_ncc.slot_scores(*args),
+        }),
+        **_time_runs({
+            "plain": lambda: warp_ncc.slot_scores_plain(*args, frames=frames),
+        }, plain_reps),
+    }
+    B, M = view_ids.shape
+    textures = int((sk != -1).sum())  # slot 0 included
+    bound = _warp_bound(images, (*kargs[1:11], sk), textures, k)
+    print(f"[slot_ncc] {label}: B={B} M={M} k={k} slots={int(ok.sum())} "
           f"scored={int(both.sum())} max_abs_err={err:.3e} "
           f"sentinel_flips={len(flips)} kernel_ms={ms['kernel']:.4f} "
-          f"plain_ms={ms['plain']:.4f} wrapper_ms={ms['wrapper']:.4f}",
-          flush=True)
-    return err, ms["kernel"], ms["plain"]
+          f"plain_ms={ms['plain']:.4f} wrapper_ms={ms['wrapper']:.4f} "
+          f"bound_ms={bound[0]:.5f} ({bound[1]})", flush=True)
+    return _result(err, ms, bound)
+
+
+def _slot_tables(label, vis, max_views):
+    """The anchor-pinned chunks of `vis`, made on the card; checks that the
+    stable sort behind them and behind `compact_visible` gives the same ids
+    and ok on the card as on the CPU."""
+    import torch
+
+    from densepoints_tpu_torch.ops.warp import compact_visible
+    from densepoints_tpu_torch.pmvs.optimize import _anchor_chunks
+
+    chunks = _anchor_chunks(vis, max_views)
+    pairs = zip(chunks + [compact_visible(vis, max_views)],
+                _anchor_chunks(vis.cpu(), max_views)
+                + [compact_visible(vis.cpu(), max_views)])
+    for (ids, ok), (hids, hok) in pairs:
+        check(torch.equal(ids.cpu(), hids) and torch.equal(ok.cpu(), hok),
+              f"{label}: slot tables differ between card and CPU")
+    return chunks
 
 
 def phase_kernels(device):
+    """Every kernel against its plain version; returns per-kernel results
+    keyed by shape."""
     import torch
 
+    results = {"allview_ncc": {}, "slot_ncc": {}, "ncc_pairs": {}}
+    for N, L in ((32768, 121), (262144, 256)):
+        for masked in (False, True):
+            key = f"{N}x{L}_{'masked' if masked else 'maskless'}"
+            results["ncc_pairs"][key] = compare_ncc_pairs(N, L, masked, device)
+    torch.cuda.empty_cache()
     refine = refine_inputs(device)
-    results = {}
+    (ids, ok), = _slot_tables("refine", refine[5], 8)  # V = 8: one chunk
     for k in (11, 16):
-        results[f"refine_k{k}"] = compare_kernel(f"refine k={k}", *refine, k)
+        results["allview_ncc"][f"refine_k{k}"] = compare_kernel(
+            f"refine k={k}", *refine, k)
+        results["slot_ncc"][f"refine_k{k}"] = compare_slot_kernel(
+            f"refine k={k}", *refine[:5], ids, ok, k)
     del refine
     dtu = dtu_inputs(device)
-    results["dtu_k16"] = compare_kernel("dtu k=16", *dtu, 16)
+    results["allview_ncc"]["dtu_k16"] = compare_kernel("dtu k=16", *dtu, 16)
+    chunks = _slot_tables("dtu", dtu[5], 16)
+    check(len(chunks) == 4 and chunks[0][0].shape == (dtu[5].shape[0], 16),
+          f"dtu: expected 4 chunks of 16 slots, got {len(chunks)}")
+    for c, (ids, ok) in enumerate(chunks):
+        results["slot_ncc"][f"dtu_k16_chunk{c}"] = compare_slot_kernel(
+            f"dtu k=16 chunk {c}", *dtu[:5], ids, ok, 16, plain_reps=5)
     del dtu
     torch.cuda.empty_cache()
     return results
+
+
+def _counters():
+    from densepoints_tpu_torch.ops import allview_ncc, ncc, warp_ncc
+
+    return {"allview_ncc": allview_ncc, "slot_ncc": warp_ncc,
+            "ncc_pairs": ncc}
+
+
+def _reset_counters():
+    for module in _counters().values():
+        module.KERNEL_LAUNCHES = 0
+        module.PLAIN_CALLS = 0
+
+
+def _read_counters():
+    return ({name: m.KERNEL_LAUNCHES for name, m in _counters().items()},
+            {name: m.PLAIN_CALLS for name, m in _counters().items()})
+
+
+def _objectives_agree(label, inputs, k, max_score_views, K, seed):
+    """Chunked objective through the slot kernel vs the all-views objective
+    (two kernels, two derivations) and vs its own gather + row-wise NCC
+    route, on seeded (B, K, 3) parameters; returns the slot-kernel one."""
+    import numpy as np
+    import torch
+
+    from densepoints_tpu_torch import pmvs
+    from densepoints_tpu_torch.pmvs.optimize import photometric_objective_paged
+
+    images, cams, pos, nrm, ref, vis = inputs
+    B = pos.shape[0]
+    params = torch.as_tensor(
+        np.random.default_rng(seed).uniform(-0.05, 0.05, (B, K, 3))
+        .astype(np.float32), device=pos.device)
+    f_auto = pmvs.photometric_objective(
+        images, cams, pos, nrm, ref, vis, k, impl="auto",
+        max_score_views=max_score_views)
+    f_xla = pmvs.photometric_objective(
+        images, cams, pos, nrm, ref, vis, k, impl="xla",
+        max_score_views=max_score_views)
+    f_paged = photometric_objective_paged(images, cams, pos, nrm, ref, vis, k)
+    t0 = time.perf_counter()
+    auto, xla, paged = f_auto(params), f_xla(params), f_paged(params)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for name, c in (("auto", auto), ("xla", xla), ("paged", paged)):
+        check(c.shape == (B, K) and bool(torch.isfinite(c).all()),
+              f"{label}: objective {name} not finite (B, K)")
+    d_paged = float((auto - paged).abs().max())
+    d_xla = float((auto - xla).abs().max())
+    print(f"[slice] {label}: objective (B={B}, K={K}, k={k}, "
+          f"max_score_views={max_score_views}) |slot - allview| "
+          f"{d_paged:.3e}, |slot - gather+ncc_pairs| {d_xla:.3e}, "
+          f"mean cost {float(auto.mean()):.4f}, {dt:.2f} s", flush=True)
+    check(d_paged <= OBJ_ATOL, f"{label}: chunked vs all-views {d_paged:.3e}")
+    check(d_xla <= SCORE_ATOL, f"{label}: slot kernel vs xla route {d_xla:.3e}")
+    return f_auto
+
+
+def phase_slice_path(device):
+    """The slot-scoring path through its entry points, counters set to 0
+    just before; returns the kernels' launch counts on this path."""
+    import torch
+
+    from densepoints_tpu_torch import pmvs
+    from densepoints_tpu_torch.ops.simplex import nelder_mead
+
+    refine = refine_inputs(device)
+    cams, images, pos, nrm, ref, vis = refine
+    refine = (images, cams, pos, nrm, ref, vis)
+    _reset_counters()
+    # Slot scores at the refine shape by all three routes.
+    by_impl = {
+        impl: pmvs.patch_ncc_scores(*refine, 11, max_score_views=8, impl=impl)
+        for impl in ("auto", "fused", "xla")
+    }
+    torch.cuda.synchronize()
+    s_auto, ids, ok = by_impl["auto"]
+    check(s_auto.shape == (pos.shape[0], 8), f"slot scores {s_auto.shape}")
+    check(bool(torch.isfinite(s_auto).all()), "slot scores not finite")
+    check(bool((s_auto[:, 0][ok[:, 0] & (s_auto[:, 0] != -1)] > 0.999).all()),
+          "a textured anchor does not score 1 against itself")
+    check(bool(torch.equal(s_auto, by_impl["fused"][0])),
+          "impl auto and fused differ on the card")
+    s_xla = by_impl["xla"][0]
+    check(bool(((s_auto == -1) == (s_xla == -1)).all()),
+          "slot kernel and xla route place sentinels differently")
+    d = float((s_auto - s_xla).abs().max())
+    print(f"[slice] refine: patch_ncc_scores {tuple(s_auto.shape)} |slot kernel - "
+          f"gather+ncc_pairs| {d:.3e}, scored "
+          f"{int((s_auto != -1).sum())}", flush=True)
+    check(d <= SCORE_ATOL, f"slot kernel vs xla route: {d:.3e}")
+    # (a) the objectives at the refine shape.
+    f_auto = _objectives_agree("refine", refine, 11, 16, 4, seed=2)
+    # (c) 30 Nelder-Mead iterations on the chunked objective.
+    x0 = torch.zeros((pos.shape[0], 3), device=device)
+    step = torch.tensor([0.02, 0.2, 0.2], device=device)
+    # The starting cost, evaluated in the batch shape of the solver's first
+    # call (x0 is vertex 0 of the initial simplex).
+    verts = x0[:, None, :] + torch.cat([x0.new_zeros((1, 3)),
+                                        torch.diag(step)])[None]
+    start = f_auto(verts)[:, 0]
+    t0 = time.perf_counter()
+    _, best, iters = nelder_mead(f_auto, x0, step, max_iterations=30)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(bool(torch.isfinite(best).all()), "Nelder-Mead: non-finite cost")
+    excess = float((best - start).max())
+    check(excess <= 1e-5,
+          f"Nelder-Mead: a patch ended {excess:.3e} above its starting cost")
+    print(f"[slice] refine: 30 Nelder-Mead iterations on the chunked "
+          f"objective, 4096 patches, {dt:.3f} s, mean cost "
+          f"{float(start.mean()):.4f} -> {float(best.mean()):.4f}, "
+          f"iterations used max {int(iters.max())}", flush=True)
+    del refine, f_auto
+    # (b) the objectives at the DTU shape: 4 chunks of 16 slots.
+    cams, images, pos, nrm, ref, vis = dtu_inputs(device)
+    _objectives_agree("dtu", (images, cams, pos, nrm, ref, vis), 16, 16, 2,
+                      seed=3)
+    launches, plain = _read_counters()
+    print(f"[slice] kernel launches {launches}, plain calls {plain}",
+          flush=True)
+    for name in ("slot_ncc", "ncc_pairs", "allview_ncc"):
+        check(launches[name] > 0, f"the slice's path never launched {name}")
+    check(not any(plain.values()), f"the slice's path took plain paths {plain}")
+    del images
+    torch.cuda.empty_cache()
+    return launches
 
 
 def write_sphere_scene(directory: Path):
@@ -277,7 +618,6 @@ def phase_main_path(device: str):
 
     from densepoints_tpu_torch import cli
     from densepoints_tpu_torch.io.ply import read_ply
-    from densepoints_tpu_torch.ops import allview_ncc
     from densepoints_tpu_torch.pmvs import pipeline
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -299,8 +639,7 @@ def phase_main_path(device: str):
             return captured["result"]
 
         pipeline.densify = recording_densify
-        allview_ncc.KERNEL_LAUNCHES = 0
-        allview_ncc.PLAIN_CALLS = 0
+        _reset_counters()
         t0 = time.perf_counter()
         try:
             rc = cli.main(["-i", str(scene_path), "-s", str(settings),
@@ -308,8 +647,9 @@ def phase_main_path(device: str):
         finally:
             pipeline.densify = densify
         wall = time.perf_counter() - t0
-        launches = allview_ncc.KERNEL_LAUNCHES
-        plain = allview_ncc.PLAIN_CALLS
+        all_launches, all_plain = _read_counters()
+        launches = all_launches["allview_ncc"]
+        plain = sum(all_plain.values())
         check(rc == 0, f"cli.main returned {rc}")
         cloud = read_ply(out)
     metrics = captured["result"].metrics
@@ -335,31 +675,91 @@ def phase_main_path(device: str):
     return launches, metrics.times
 
 
+KERNELS = (
+    # name, source, TPU kernel it replaces, shape reported in the record
+    ("allview_ncc", "densepoints_tpu_torch/csrc/allview_ncc.cu",
+     "densepoints_tpu/ops/warp_ncc_paged.py:287", "refine_k11"),
+    ("slot_ncc", "densepoints_tpu_torch/csrc/slot_ncc.cu",
+     "densepoints_tpu/ops/warp_ncc.py:98", "refine_k11"),
+    ("ncc_pairs", "densepoints_tpu_torch/csrc/ncc_pairs.cu",
+     "densepoints_tpu/ops/ncc.py:36", "32768x121_maskless"),
+)
+
+
+def time_allview(device):
+    """The `--time-allview` mode: one JSON line of all-views kernel times."""
+    import torch
+
+    from densepoints_tpu_torch.ops import allview_ncc
+    from densepoints_tpu_torch.ops.warp import patch_frames
+
+    out = {"root": str(ROOT), "card": torch.cuda.get_device_name(0)}
+
+    def run(label, cams, images, pos, nrm, ref, vis, k):
+        frames = patch_frames(cams, pos, nrm, ref, k)
+        kargs = _allview_kargs(cams, images, pos, frames, vis, k)
+        fn = lambda: allview_ncc.allview_scores_cuda(*kargs)  # noqa: E731
+        for _ in range(5):
+            fn()
+        out[label] = [round(_time_ms(fn, 50), 4) for _ in range(3)]
+
+    refine = refine_inputs(device)
+    run("refine_k11_ms", *refine, 11)
+    run("refine_k16_ms", *refine, 16)
+    del refine
+    run("dtu_k16_ms", *dtu_inputs(device), 16)
+    print(json.dumps(out), flush=True)
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:] == ["--time-allview"]:
+        try:
+            phase_device()
+            phase_build()
+            time_allview("cuda")
+        except SmokeFailure as exc:
+            print(f"FAIL: {exc}", flush=True)
+            return 1
+        return 0
+    if sys.argv[1:]:
+        print(f"unknown arguments {sys.argv[1:]}", flush=True)
+        return 2
     try:
         name, smi_line = phase_device()
         phase_build()
         results = phase_kernels("cuda")
-        launches, _ = phase_main_path("cuda")
+        launches = phase_slice_path("cuda")
+        # The all-views kernel's own path is the CLI run; the other two are
+        # counted on the slot-scoring path above.
+        launches["allview_ncc"], _ = phase_main_path("cuda")
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
     import torch
 
-    err = max(r[0] for r in results.values())
-    _, ms, plain_ms = results["refine_k11"]
+    record = []
+    for kernel, source, replaces, shape in KERNELS:
+        check((ROOT / source).exists(), f"{source} is missing")
+        shown = results[kernel][shape]
+        record.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[kernel],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in results[kernel].values()),
+            "ms": shown["ms"],
+            "plain_ms": shown["plain_ms"],
+            "bound_ms": shown["bound_ms"],
+            "bound_by": shown["bound_by"],
+            # No single PyTorch call computes a projective warp + NCC, or
+            # a clamped row-wise NCC.
+            "library_ms": None,
+        })
     print(smi_line, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "allview_ncc",
-        "route": "cuda",
-        "source": "densepoints_tpu_torch/csrc/allview_ncc.cu",
-        "replaces": "densepoints_tpu/ops/warp_ncc_paged.py:287",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

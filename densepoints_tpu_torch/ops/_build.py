@@ -1,0 +1,111 @@
+"""Build and binding of the package's CUDA kernels.
+
+Every `csrc/*.cu` is compiled by one nvcc call (sm_90a) into one shared
+library with a plain C interface under `_build/`, at first use. The file
+name carries a hash of all sources, headers and flags, so an edit of any of
+them builds anew. Functions are bound with ctypes; `launch` sets the argument
+types (pointers and the stream as `c_void_p`, or ctypes would cut them to
+32 bits).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["build_library", "check_tensor", "launch", "VOID_P", "INT64", "INT"]
+
+VOID_P, INT64, INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "--threads", "0",
+)
+_lock = threading.Lock()
+_lib = None
+_bound: dict[str, object] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+            "the CUDA kernels are built from source at first use"
+        )
+    return str(path)
+
+
+def build_library() -> Path:
+    """Compile csrc/*.cu into one shared library under _build/ unless a
+    build of the same sources, headers and flags is there; returns its path."""
+    sources = sorted(_CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for path in sources + sorted(_CSRC.glob("*.cuh")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    out = _BUILD_DIR / f"libdensepoints_kernels_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def _bind(name: str, argtypes):
+    """The library's C function `name` (returns a CUDA error code), built
+    and loaded at first use."""
+    global _lib
+    with _lock:
+        if name not in _bound:
+            if _lib is None:
+                _lib = ctypes.CDLL(str(build_library()))
+            fn = getattr(_lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _bound[name] = fn
+        return _bound[name]
+
+
+def check_tensor(name, t, device, dtype, shape):
+    """Raise unless `t` is what a kernel takes: device, dtype, shape,
+    contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch(name: str, argtypes, device, *args):
+    """Call kernel launcher `name` on `device`'s current stream (appended as
+    the last argument); raises if the launch is refused."""
+    import torch
+
+    fn = _bind(name, argtypes)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")

@@ -9,25 +9,18 @@ while the anchor's warp is valid too, and -1 everywhere else (the anchor's
 own column, invisible views, rows with no visible view).
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
-`csrc/allview_ncc.cu` (built with nvcc for sm_90a at first use, bound with
-ctypes) or raises. On a CPU tensor it runs `allview_scores_plain`, the
-plain torch version of the same contract. `KERNEL_LAUNCHES` and
-`PLAIN_CALLS` count which path ran.
+`csrc/allview_ncc.cu` (built with nvcc for sm_90a at first use and bound
+with ctypes by `ops/_build.py`) or raises. On a CPU tensor it runs
+`allview_scores_plain`, the plain torch version of the same contract.
+`KERNEL_LAUNCHES` and `PLAIN_CALLS` count which path ran.
 """
 from __future__ import annotations
-
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
 from densepoints_tpu_torch.core.cameras import Cameras
 from densepoints_tpu_torch.core.scores import NCC_MIN_DENOM
+from densepoints_tpu_torch.ops import _build
 from densepoints_tpu_torch.ops.warp import patch_frames, patch_textures
 
 __all__ = [
@@ -42,79 +35,17 @@ __all__ = [
 KERNEL_LAUNCHES = 0  # kernel launches, counted where the kernel launches
 PLAIN_CALLS = 0  # calls answered by the plain torch version (CPU tensors)
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "allview_ncc.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+_VP, _I64 = _build.VOID_P, _build.INT64
+_ARGTYPES = (
+    _VP, _I64, _I64, _I64,  # images, V, H, W
+    _VP, _VP, _VP, _VP, _VP,  # K, R, C, width, height
+    _VP, _VP, _VP, _VP,  # position, sx, sy, vis
+    _I64, _build.INT,  # B, k
+    _VP, _VP, _VP, _VP,  # scores, anchor, anchor_ok, stream
 )
-_lib = None
-_lib_lock = threading.Lock()
 
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError(
-            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
-            "the all-views NCC kernel is built from source at first use"
-        )
-    return str(path)
-
-
-def build_kernel() -> Path:
-    """Compile csrc/allview_ncc.cu into _build/, keyed by a hash of the
-    source and flags; returns the shared library's path."""
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"liballview_ncc_{key}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_kernel()))
-            fn = lib.allview_ncc_launch
-            vp, i64 = ctypes.c_void_p, ctypes.c_int64
-            fn.argtypes = [
-                vp, i64, i64, i64,  # images, V, H, W
-                vp, vp, vp, vp, vp,  # K, R, C, width, height
-                vp, vp, vp, vp,  # position, sx, sy, vis
-                i64, ctypes.c_int,  # B, k
-                vp, vp, vp, vp,  # scores, anchor, anchor_ok, stream
-            ]
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
-
-
-def _check(name, t, device, dtype, shape):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+build_kernel = _build.build_library  # builds every kernel of the package
+_check = _build.check_tensor
 
 
 def allview_scores_cuda(
@@ -162,20 +93,16 @@ def allview_scores_cuda(
     anchor_ok = torch.empty((B,), dtype=torch.bool, device=dev)
     if B == 0:
         return scores, anchor, anchor_ok
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
     KERNEL_LAUNCHES += 1
-    err = lib.allview_ncc_launch(
+    _build.launch(
+        "allview_ncc_launch", _ARGTYPES, dev,
         images.data_ptr(), V, H, W,
         K.data_ptr(), R.data_ptr(), C.data_ptr(),
         width.data_ptr(), height.data_ptr(),
         position.data_ptr(), sx.data_ptr(), sy.data_ptr(), vis.data_ptr(),
         B, k,
-        scores.data_ptr(), anchor.data_ptr(), anchor_ok.data_ptr(), stream,
+        scores.data_ptr(), anchor.data_ptr(), anchor_ok.data_ptr(),
     )
-    if err != 0:
-        raise RuntimeError(f"allview_ncc kernel launch failed: CUDA error {err}")
     return scores, anchor, anchor_ok
 
 

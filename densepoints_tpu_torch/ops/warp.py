@@ -20,7 +20,13 @@ import torch
 
 from densepoints_tpu_torch.core.cameras import Cameras
 
-__all__ = ["bilinear_sample", "patch_frames", "patch_textures"]
+__all__ = [
+    "bilinear_sample",
+    "patch_frames",
+    "patch_textures",
+    "compact_visible",
+    "patch_textures_indexed",
+]
 
 
 def bilinear_sample(image: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
@@ -114,3 +120,98 @@ def patch_textures(
     )  # (B, V, k, k)
     textures = torch.where(valid[:, :, None, None], tex, 0.0)
     return textures, valid
+
+
+def compact_visible(vis: torch.Tensor, max_views: int):
+    """Compact each patch's visible-view set into M = min(V, max_views) slots.
+
+    vis: (B, V) -> (view_ids (B, M) int32, ok (B, M) bool). Slot 0 is the
+    FIRST visible view (the anchor); slots are in ascending view order,
+    invisible views behind the visible ones (a stable sort); ok marks the
+    visible slots.
+    """
+    M = min(vis.shape[1], max_views)
+    order = torch.argsort((~vis).to(torch.uint8), dim=1, stable=True)[:, :M]
+    return order.to(torch.int32), torch.gather(vis, 1, order)
+
+
+def _bilinear_flat(images_flat, H, W, view_ids, xy):
+    """Bilinear sample with a view per element, clamp-to-edge within each
+    view's H x W page. images_flat: (V*H*W,); view_ids: (...,) int64
+    broadcastable against xy (..., 2)."""
+    x = xy[..., 0].clamp(0.0, W - 1.0)
+    y = xy[..., 1].clamp(0.0, H - 1.0)
+    x0 = torch.floor(x).long().clamp(0, W - 2)
+    y0 = torch.floor(y).long().clamp(0, H - 2)
+    dx = x - x0
+    dy = y - y0
+    base = view_ids * (H * W) + y0 * W + x0
+    return (
+        images_flat[base] * (1 - dx) * (1 - dy)
+        + images_flat[base + 1] * dx * (1 - dy)
+        + images_flat[base + W] * (1 - dx) * dy
+        + images_flat[base + W + 1] * dx * dy
+    )
+
+
+def patch_textures_indexed(
+    images: torch.Tensor,
+    cameras: Cameras,
+    position: torch.Tensor,
+    normal: torch.Tensor,
+    ref: torch.Tensor,
+    view_ids: torch.Tensor,
+    view_ok: torch.Tensor,
+    texture_size: int,
+    frames=None,
+):
+    """Textures of each patch in its OWN (compacted) view list, so work
+    scales with the slots per patch, not with the scene's view count.
+
+    images: (V, H, W); view_ids: (B, M) integer; view_ok: (B, M) bool.
+    `frames` optionally passes precomputed (sx, sy).
+    Returns (textures (B, M, k, k), valid (B, M)).
+    """
+    k = texture_size
+    V, H, W = images.shape
+    sx, sy = frames if frames is not None else patch_frames(
+        cameras, position, normal, ref, k
+    )
+    coords = (
+        2.0 * torch.arange(k, dtype=position.dtype, device=position.device) / k
+    ) - 1.0
+    tt, ss = torch.meshgrid(coords, coords, indexing="ij")
+    world = (
+        position[:, None, None, :]
+        + ss[None, :, :, None] * sx[:, None, None, :]
+        + tt[None, :, :, None] * sy[:, None, None, :]
+    ).reshape(-1, k * k, 3)  # (B, k*k, 3)
+    corners = position[:, None, :] + torch.stack(
+        [-sx - sy, sx - sy, sx + sy, -sx + sy], dim=1
+    )  # (B, 4, 3)
+
+    # Per-(patch, slot) camera parameters.
+    ids = view_ids.long()
+    K, R, C = cameras.K[ids], cameras.R[ids], cameras.C[ids]  # (B, M, ...)
+    w = cameras.width.to(position.dtype)[ids]  # (B, M)
+    h = cameras.height.to(position.dtype)[ids]
+
+    def _proj(pts):  # (B, n, 3) -> (B, M, n, 2)
+        rel = pts[:, None, :, :] - C[:, :, None, :]
+        cam = torch.einsum("bmij,bmnj->bmni", R, rel)
+        pix = torch.einsum("bmij,bmnj->bmni", K, cam)
+        return pix[..., :2] / pix[..., 2:3]
+
+    pix_corners = _proj(corners)  # (B, M, 4, 2)
+    inside = (
+        (pix_corners[..., 0] > 0)
+        & (pix_corners[..., 0] < w[..., None])
+        & (pix_corners[..., 1] > 0)
+        & (pix_corners[..., 1] < h[..., None])
+    )
+    valid = inside.all(-1) & view_ok  # (B, M)
+    tex = _bilinear_flat(
+        images.reshape(-1), H, W, ids[:, :, None], _proj(world)
+    )  # (B, M, k*k)
+    textures = tex.reshape(tex.shape[0], tex.shape[1], k, k)
+    return torch.where(valid[:, :, None, None], textures, 0.0), valid

@@ -15,6 +15,11 @@
 Both stages score through `ops.allview_ncc.allview_scores` (the CUDA
 kernel on the GPU) and process at most `max_refine_batch` patches per
 slice, a memory bound.
+
+`patch_ncc_scores`, `_anchor_chunks` and `photometric_objective` are the
+compacted-slot ("chunked") derivation of the same scores and the same
+objective. No stage dispatches them; they are the parity reference the
+all-views path is held against, on the CPU and on the card.
 """
 from __future__ import annotations
 
@@ -25,15 +30,40 @@ import torch
 from densepoints_tpu_torch.config import OptimizeConfig
 from densepoints_tpu_torch.core.cameras import Cameras
 from densepoints_tpu_torch.ops.allview_ncc import allview_scores
+from densepoints_tpu_torch.ops.ncc import ncc_pairs
 from densepoints_tpu_torch.ops.simplex import nelder_mead
+from densepoints_tpu_torch.ops.warp import compact_visible
+from densepoints_tpu_torch.ops.warp_ncc import (
+    gather_scores,
+    patch_ncc_scores_fused,
+    slot_scores,
+)
 from densepoints_tpu_torch.pmvs.patch import PatchState
 
 __all__ = [
+    "parametrize",
     "unparametrize",
+    "patch_ncc_scores",
+    "photometric_objective",
     "photometric_objective_paged",
     "filter_by_error",
     "optimize_patches",
 ]
+
+
+def parametrize(cameras: Cameras, position, normal, ref):
+    """(depth, roll, pitch) of the current patch pose. Diagnostic: the
+    solver always starts at 0 relative."""
+    depth = torch.linalg.norm(position - cameras.C[ref], dim=-1)
+    x_axis = cameras.x_axis[ref]
+    y_axis = torch.linalg.cross(normal, x_axis)
+    z_axis = torch.linalg.cross(x_axis, y_axis)
+    roll = torch.atan2(z_axis[..., 1], z_axis[..., 2])
+    pitch = torch.atan2(
+        -z_axis[..., 0],
+        torch.sqrt(z_axis[..., 1] ** 2 + z_axis[..., 2] ** 2),
+    )
+    return depth, roll, pitch
 
 
 def _rotation(roll, pitch):
@@ -58,6 +88,129 @@ def unparametrize(params, position0, normal0, C_ref):
     R = _rotation(params[..., 1], params[..., 2])
     normal = torch.einsum("...ij,...j->...i", R, normal0)
     return position, normal
+
+
+def patch_ncc_scores(
+    images: torch.Tensor,
+    cameras: Cameras,
+    position: torch.Tensor,
+    normal: torch.Tensor,
+    ref: torch.Tensor,
+    vis: torch.Tensor,
+    texture_size: int,
+    max_score_views: int = 16,
+    impl: str = "auto",
+    view_ids=None,
+    ok=None,
+):
+    """Per-slot NCC against the anchor (first visible) view's texture.
+
+    Views are compacted to M = min(V, max_score_views) slots per patch;
+    explicit `view_ids`/`ok` slot arrays score a chosen view subset instead
+    (slot 0 must be the anchor). Returns (scores (B, M), view_ids (B, M),
+    ok (B, M)); scores[b, 0] is the anchor against itself; slots whose warp
+    is invalid or whose anchor is invalid score -1.
+
+    `impl` dispatches on the tensors' device, with no fallback:
+    "auto" = the slot kernel (`ops.warp_ncc`) for CUDA tensors, its plain
+    version for CPU tensors; "fused" = the slot kernel, CUDA tensors only;
+    "xla" = `ops.warp_ncc.gather_scores`: gathered textures in torch, then
+    `ops.ncc.ncc_pairs` (the row-wise NCC kernel for CUDA tensors, its plain
+    version on the CPU).
+    """
+    if impl == "fused":
+        return patch_ncc_scores_fused(
+            images, cameras, position, normal, ref, vis, texture_size,
+            max_score_views, view_ids=view_ids, ok=ok,
+        )
+    if impl not in ("auto", "xla"):
+        raise ValueError(f"unknown sampling impl {impl!r}")
+    if view_ids is None:
+        view_ids, ok = compact_visible(vis, max_score_views)
+    args = (images, cameras, position, normal, ref, view_ids, ok, texture_size)
+    if impl == "auto":
+        return slot_scores(*args), view_ids, ok
+    return gather_scores(*args, ncc_pairs), view_ids, ok
+
+
+def _anchor_chunks(vis: torch.Tensor, max_views: int):
+    """Split each patch's visible set into anchor-pinned slot chunks.
+
+    Every chunk is (view_ids (B, M) int32, ok (B, M)) with slot 0 = the
+    patch's FIRST visible view (the anchor texture) and up to M-1 payload
+    views in ascending view order. Together the chunks cover ALL visible
+    views, so scenes with V > max_views score every view. The tail chunk is
+    padded to the same width with the anchor's id and ok False.
+    """
+    B, V = vis.shape
+    M = min(V, max_views)
+    order = torch.argsort((~vis).to(torch.uint8), dim=1, stable=True)
+    okf = torch.gather(vis, 1, order)
+    payload = max(M - 1, 1)
+    n_chunks = max(1, -(-(V - 1) // payload))
+    chunks = []
+    for c in range(n_chunks):
+        lo = 1 + c * payload
+        hi = min(lo + payload, V)
+        pad = payload - (hi - lo)
+        ids = torch.cat(
+            [order[:, :1], order[:, lo:hi], order[:, :1].expand(B, pad)], dim=1
+        )
+        ok = torch.cat(
+            [okf[:, :1], okf[:, lo:hi], okf.new_zeros((B, pad))], dim=1
+        )
+        chunks.append((ids.to(torch.int32), ok))
+    return chunks
+
+
+def photometric_objective(
+    images: torch.Tensor,
+    cameras: Cameras,
+    position0: torch.Tensor,
+    normal0: torch.Tensor,
+    ref: torch.Tensor,
+    vis: torch.Tensor,
+    texture_size: int,
+    impl: str = "auto",
+    max_score_views: int = 16,
+):
+    """Chunked batched objective f(params (B, K, 3)) -> (B, K).
+
+    Same semantics as `photometric_objective_paged` (mean of 1 - NCC over
+    every visible non-anchor view, 2 where none), with the views scored in
+    anchor-pinned chunks of `max_score_views` slots (`_anchor_chunks`)
+    through `patch_ncc_scores(impl=impl)`.
+    """
+    C_ref = cameras.C[ref]
+    chunks = _anchor_chunks(vis, max_score_views)
+
+    def f(params: torch.Tensor) -> torch.Tensor:
+        B, K, _ = params.shape
+        pos, nrm = unparametrize(
+            params, position0[:, None, :], normal0[:, None, :],
+            C_ref[:, None, :],
+        )
+        pos = pos.reshape(B * K, 3)
+        nrm = nrm.reshape(B * K, 3)
+        ref_bk = ref.repeat_interleave(K)
+        vis_bk = vis.repeat_interleave(K, dim=0)
+        err_sum = params.new_zeros((B * K,))
+        n_sum = torch.zeros((B * K,), dtype=torch.int64, device=params.device)
+        for chunk_ids, chunk_ok in chunks:
+            scores, _, ok = patch_ncc_scores(
+                images, cameras, pos, nrm, ref_bk, vis_bk, texture_size,
+                impl=impl,
+                view_ids=chunk_ids.repeat_interleave(K, dim=0),
+                ok=chunk_ok.repeat_interleave(K, dim=0),
+            )
+            counted = ok.clone()
+            counted[:, 0] = False  # visible slots except the anchor
+            err_sum = err_sum + torch.where(counted, 1.0 - scores, 0.0).sum(1)
+            n_sum = n_sum + counted.sum(dim=1)
+        cost = torch.where(n_sum > 0, err_sum / n_sum.clamp_min(1), 2.0)
+        return cost.reshape(B, K)
+
+    return f
 
 
 def _payload(vis: torch.Tensor) -> torch.Tensor:
@@ -119,10 +272,15 @@ def _sliced(fn, images, cameras, state: PatchState, texture_size, config):
 
 
 def _check_impl(impl: str):
+    """One production scoring semantics: the all-views pass. The chunked
+    values "fused" and "xla" are retired for the stages, loudly."""
     if impl not in ("auto", "paged"):
-        raise NotImplementedError(
-            f"sampling_impl {impl!r}: the port scores through the all-views "
-            "pass only; the chunked parity path waits (ROADMAP B, K2 and K3)"
+        raise ValueError(
+            f"sampling_impl {impl!r} was retired: the all-views pass "
+            "(ops.allview_ncc) is the single production scoring semantics. "
+            "The chunked implementation remains available as a parity "
+            "reference (patch_ncc_scores / photometric_objective with "
+            "impl='fused' or 'xla')."
         )
 
 

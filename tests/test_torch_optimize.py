@@ -200,10 +200,12 @@ def test_compute_color_matches(rng):
 
 
 def test_sampling_impl_outside_the_slice_raises(rng):
+    """The chunked values are retired for the stages (ValueError, as in the
+    JAX package); they live on as `impl` of `patch_ncc_scores`."""
     cams, images = _setup(rng)
     st = torch_state(_state(rng, 4, cams.num_views))
     cfg = dataclasses.replace(OptimizeConfig(), sampling_impl="fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="retired"):
         filter_by_error(
             torch.as_tensor(images), torch_cameras(cams), st, 11, cfg
         )
