@@ -22,13 +22,28 @@ no result line:
   5. slot kernel vs plain: `ops.warp_ncc` at the refine shape (8 slots,
      k = 11 and 16) and the DTU shape (4 anchor-pinned chunks of 16 slots,
      k = 16): scores within 1e-4, equal sentinel placement;
-  6. the slot-scoring path: `pmvs.patch_ncc_scores` and the chunked
+  6. window kernels vs plain: `ops.window_ncc` (`full`, `staged`,
+     `warp_slot`, and the gradient form against its own plain version) and
+     `ops.window_textures` (`full`, `staged`, `warp_slot`) at the shapes of
+     the two ablation programs and at one awkward shape each (a patch count
+     that is no multiple of 8, k = 16, taps outside the window, windows
+     over the stack's edges, dead slots): scores within 1e-4, textures
+     within 1e-3 grey levels;
+  7. the slot-scoring path: `pmvs.patch_ncc_scores` and the chunked
      `photometric_objective` through the slot kernel ("auto", "fused") and
      through torch gathers + the row-wise NCC kernel ("xla"), held against
      each other and against the all-views objective at the refine and DTU
      shapes, then 30 Nelder-Mead iterations on the chunked objective; every
      launch counter set to 0 just before;
-  7. main path: `densepoints_tpu_torch.cli.main` on a 12-view 512 x 384
+  8. the ablation path: `scripts.kernel_ablate` and
+     `scripts.kernel_paged_ablate` through their `main()` at their full
+     shapes, every launch counter set to 0 just before; every variant
+     timed, the score-computing ones held against `full`;
+  9. the alternative seed front end on the sphere scene: FAST corners and
+     the `hamming_absolute`, `epipolar` and `epipolar_all` matchers through
+     `generate_seed_points`, then the CLI with `expand.prescreen = "claim"`
+     (patch count and radial error checked, pre-screen counts printed);
+  10. main path: `densepoints_tpu_torch.cli.main` on a 12-view 512 x 384
      textured-sphere scene written as PNG files + scene JSON, with every
      launch counter set to 0 just before; checks the counters, the PLY, the
      patch count and the radial error against the analytic sphere.
@@ -41,8 +56,10 @@ The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
 With `--time-allview` the script only builds the kernels and prints one
-JSON line of all-views kernel times (three medians of 50 CUDA-event timings
-at the refine k = 11, k = 16 and DTU k = 16 shapes). It takes the package
+JSON line of kernel-only times (three medians of 50 CUDA-event timings):
+the all-views kernel at the refine k = 11, k = 16 and DTU k = 16 shapes,
+the slot kernel at the refine k = 11 shape (8 slots) and on the first DTU
+chunk (16 slots). It takes the package
 from the directory it lies in, so a copy of it placed in a checkout of
 another commit times that commit's kernel: run the two in turns (parent,
 change, change, parent) within one job to compare them on one card.
@@ -61,6 +78,12 @@ SCORE_ATOL = 1e-4  # f32 kernel vs f32 plain: summation order only
 BORDER_PX = 1e-3  # sentinel flips allowed only this close to a border
 NCC_ATOL = 1e-5  # row-wise NCC, f32 kernel vs f32 plain: summation order
 OBJ_ATOL = 5e-4  # chunked vs all-views objective: two derivations, f32
+# Window kernels vs plain, f32 both: fused multiply-adds and summation order
+# on scores in [-1, 1], and on centred textures of grey levels around +-128
+# (whose f32 resolution is 1.5e-5).
+WINDOW_SCORE_ATOL = 1e-4
+WINDOW_TEXTURE_ATOL = 1e-3
+GRAD_VS_FULL_ATOL = 1e-3  # left + fx * grad vs the two-tap blend, f32
 SPHERE_RADIUS = 150.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores, published
@@ -107,8 +130,9 @@ def phase_device():
 
 
 def phase_build():
-    """One nvcc call builds every kernel (allview_ncc, slot_ncc, ncc_pairs)
-    into one library; the bindings fail later if a symbol is missing."""
+    """One nvcc call builds every kernel (allview_ncc, slot_ncc, ncc_pairs,
+    window_ncc, window_textures) into one library; the bindings fail later
+    if a symbol is missing."""
     from densepoints_tpu_torch.ops import allview_ncc
 
     t0 = time.perf_counter()
@@ -407,6 +431,131 @@ def compare_slot_kernel(label, cams, images, pos, nrm, ref, view_ids, ok, k,
     return _result(err, ms, bound)
 
 
+def _window_ncc_awkward(device):
+    """B not a multiple of 8, k = 16, taps outside the window, windows that
+    hang over the stack's edges."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(5)
+    B, M, n, R, W = 1001, 5, 256, 700, 300
+    stack = rng.uniform(0, 255, (R, W)).astype(np.float32)
+    grad = np.concatenate([stack[:, 1:] - stack[:, :-1],
+                           np.zeros((R, 1), np.float32)], 1)
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return {
+        "stack": t(stack), "grad_stack": t(grad),
+        "row0": t(rng.integers(-20, R - 30, (B, M)).astype(np.int32)),
+        "x0": t(rng.integers(-30, W - 90, (B, M)).astype(np.int32)),
+        "xs": t(rng.uniform(-3, 131, (B, M, n)).astype(np.float32)),
+        "ys": t(rng.uniform(-3, 59, (B, M, n)).astype(np.float32)),
+        "n_real": n,
+    }
+
+
+def compare_window_ncc(label, inp, plain_reps=20):
+    """`ops.window_ncc` vs plain on one input set: every score-computing
+    variant, and the gradient form against its own plain version."""
+    import torch
+
+    from densepoints_tpu_torch.ops import window_ncc
+    from densepoints_tpu_torch.scripts import kernel_ablate
+
+    args = (inp["stack"], inp["row0"], inp["x0"], inp["xs"], inp["ys"],
+            inp["n_real"], kernel_ablate.WIN_H, kernel_ablate.WIN_W)
+    want = window_ncc.window_scores_plain(*args)
+    want_grad = window_ncc.window_scores_plain(
+        *args, grad_stack=inp["grad_stack"])
+    errs = {}
+    for variant in window_ncc.SCORING_VARIANTS:
+        got = window_ncc.window_scores(*args, variant=variant)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{label} {variant}: not finite")
+        errs[variant] = float((got - want).abs().max())
+    got = window_ncc.window_scores(*args, grad_stack=inp["grad_stack"])
+    torch.cuda.synchronize()
+    errs["grad"] = float((got - want_grad).abs().max())
+    for variant, err in errs.items():
+        check(err <= WINDOW_SCORE_ATOL,
+              f"{label} {variant}: max |kernel - plain| {err:.3e}")
+    ms = {
+        **_time_runs({
+            "kernel": lambda: window_ncc.window_scores_cuda(*args),
+            "wrapper": lambda: window_ncc.window_scores(*args),
+        }),
+        **_time_runs({
+            "plain": lambda: window_ncc.window_scores_plain(*args),
+        }, plain_reps),
+    }
+    bound = kernel_ablate.scores_bound(inp, want, grad=False)
+    B, M = inp["row0"].shape
+    print(f"[window_ncc] {label}: B={B} M={M} n={inp['n_real']} "
+          + " ".join(f"{v}_err={e:.3e}" for v, e in errs.items())
+          + f" kernel_ms={ms['kernel']:.4f} plain_ms={ms['plain']:.4f} "
+          f"wrapper_ms={ms['wrapper']:.4f} bound_ms={bound[0]:.5f} "
+          f"({bound[1]})", flush=True)
+    return _result(max(errs.values()), ms, bound)
+
+
+def _window_textures_awkward(device):
+    """A slot count that is no multiple of 4, k = 16, taps outside the
+    window, windows past the page's ends, dead slots."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(6)
+    N, n, P, R = 10007, 256, 5, 300
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return {
+        "pages": t(rng.uniform(0, 255, (P, R, 128)).astype(np.float32)),
+        "page": t(rng.integers(-1, P, N).astype(np.int32)),
+        "row0": t(rng.integers(-20, R - 30, N).astype(np.int32)),
+        "xs": t(rng.uniform(-3, 131, (N, n)).astype(np.float32)),
+        "ys": t(rng.uniform(-3, 59, (N, n)).astype(np.float32)),
+        "n_real": n,
+    }
+
+
+def compare_window_textures(label, inp, plain_reps=20):
+    """`ops.window_textures` vs plain on one input set."""
+    import torch
+
+    from densepoints_tpu_torch.ops import window_textures
+    from densepoints_tpu_torch.scripts import kernel_paged_ablate
+
+    args = (inp["pages"], inp["page"], inp["row0"], inp["xs"], inp["ys"],
+            inp["n_real"], kernel_paged_ablate.WIN_H)
+    want = window_textures.window_centered_textures_plain(*args)
+    dead = inp["page"] < 0
+    errs = {}
+    for variant in window_textures.SCORING_VARIANTS:
+        got = window_textures.window_centered_textures(*args, variant=variant)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{label} {variant}: not finite")
+        check(bool((got[dead] == 0).all()),
+              f"{label} {variant}: a dead slot is not zero")
+        errs[variant] = float((got - want).abs().max())
+        check(errs[variant] <= WINDOW_TEXTURE_ATOL,
+              f"{label} {variant}: max |kernel - plain| {errs[variant]:.3e}")
+    ms = {
+        **_time_runs({
+            "kernel": lambda:
+                window_textures.window_centered_textures_cuda(*args),
+        }),
+        **_time_runs({
+            "plain": lambda:
+                window_textures.window_centered_textures_plain(*args),
+        }, plain_reps),
+    }
+    bound = kernel_paged_ablate.textures_bound(inp, want)
+    print(f"[window_textures] {label}: N={inp['page'].shape[0]} "
+          f"n={inp['n_real']} dead={int(dead.sum())} "
+          + " ".join(f"{v}_err={e:.3e}" for v, e in errs.items())
+          + f" kernel_ms={ms['kernel']:.4f} plain_ms={ms['plain']:.4f} "
+          f"bound_ms={bound[0]:.5f} ({bound[1]})", flush=True)
+    return _result(max(errs.values()), ms, bound)
+
+
 def _slot_tables(label, vis, max_views):
     """The anchor-pinned chunks of `vis`, made on the card; checks that the
     stable sort behind them and behind `compact_visible` gives the same ids
@@ -431,7 +580,24 @@ def phase_kernels(device):
     keyed by shape."""
     import torch
 
-    results = {"allview_ncc": {}, "slot_ncc": {}, "ncc_pairs": {}}
+    from densepoints_tpu_torch.scripts import (
+        kernel_ablate,
+        kernel_paged_ablate,
+    )
+
+    results = {"allview_ncc": {}, "slot_ncc": {}, "ncc_pairs": {},
+               "window_ncc": {}, "window_textures": {}}
+    results["window_ncc"]["script"] = compare_window_ncc(
+        "script shape", kernel_ablate.script_inputs(device))
+    results["window_ncc"]["awkward"] = compare_window_ncc(
+        "awkward shape", _window_ncc_awkward(device))
+    for name, n_slots, V, R, k in kernel_paged_ablate.SHAPES:
+        results["window_textures"][name] = compare_window_textures(
+            name, kernel_paged_ablate.script_inputs(device, n_slots, V, R, k),
+            plain_reps=5)
+    results["window_textures"]["awkward"] = compare_window_textures(
+        "awkward shape", _window_textures_awkward(device))
+    torch.cuda.empty_cache()
     for N, L in ((32768, 121), (262144, 256)):
         for masked in (False, True):
             key = f"{N}x{L}_{'masked' if masked else 'maskless'}"
@@ -459,10 +625,17 @@ def phase_kernels(device):
 
 
 def _counters():
-    from densepoints_tpu_torch.ops import allview_ncc, ncc, warp_ncc
+    from densepoints_tpu_torch.ops import (
+        allview_ncc,
+        ncc,
+        warp_ncc,
+        window_ncc,
+        window_textures,
+    )
 
     return {"allview_ncc": allview_ncc, "slot_ncc": warp_ncc,
-            "ncc_pairs": ncc}
+            "ncc_pairs": ncc, "window_ncc": window_ncc,
+            "window_textures": window_textures}
 
 
 def _reset_counters():
@@ -587,6 +760,56 @@ def phase_slice_path(device):
     return launches
 
 
+def phase_ablation_path():
+    """The two ablation programs through their `main()` on the card at
+    their full shapes, counters set to 0 just before; returns the launch
+    counts of the two window kernels."""
+    import contextlib
+    import io
+
+    from densepoints_tpu_torch.scripts import (
+        kernel_ablate,
+        kernel_paged_ablate,
+    )
+
+    _reset_counters()
+    records = []
+    t0 = time.perf_counter()
+    for program in (kernel_ablate, kernel_paged_ablate):
+        captured = io.StringIO()
+        with contextlib.redirect_stdout(captured):
+            rc = program.main(["--device", "cuda"])
+        check(rc == 0, f"{program.__name__}.main returned {rc}")
+        for line in captured.getvalue().splitlines():
+            print(f"[ablate] {line}", flush=True)
+            records.append(json.loads(line))
+    dt = time.perf_counter() - t0
+    launches, plain = _read_counters()
+    check(len(records) == 3, f"expected 3 ablation records, got {len(records)}")
+    for rec in records:
+        full = rec["variants"]["full"]
+        check(full["bound_ms"] > 0 and full["ms"] >= full["bound_ms"],
+              f"{rec['program']}: full {full['ms']} ms against a bound of "
+              f"{full['bound_ms']}")
+        atol = (WINDOW_SCORE_ATOL if rec["program"] == "kernel_ablate"
+                else WINDOW_TEXTURE_ATOL)
+        for name, v in rec["variants"].items():
+            check(v["ms"] > 0, f"{rec['program']} {name}: no time")
+            err = v["max_abs_err_vs_full"]
+            if err is None:
+                continue  # a variant that only bounds a cost
+            limit = GRAD_VS_FULL_ATOL if name == "grad" else atol
+            check(err <= limit,
+                  f"{rec['program']} {name}: {err:.3e} from full")
+    print(f"[ablate] kernel launches {launches}, plain calls {plain}, "
+          f"{dt:.2f} s", flush=True)
+    for name in ("window_ncc", "window_textures"):
+        check(launches[name] > 0, f"the ablation path never launched {name}")
+    check(not any(plain.values()),
+          f"the ablation path took plain paths {plain}")
+    return launches
+
+
 def write_sphere_scene(directory: Path):
     """bench.py's e2e scene as PNG images + a scene JSON; returns its path."""
     import numpy as np
@@ -612,8 +835,18 @@ def write_sphere_scene(directory: Path):
     return path
 
 
-def phase_main_path(device: str):
-    """The CLI on the sphere scene; returns (launches, stage seconds)."""
+SPHERE_SETTINGS = {
+    "profile": "scan",
+    "expand": {"max_rounds": 4, "max_iterations": 40},
+    "optimize": {"max_iterations": 120},
+    "organizer": {"grid_scale": 4},
+}
+
+
+def _cli_on_sphere(device: str, settings: dict):
+    """`cli.main` on the sphere scene with `settings`, every launch counter
+    set to 0 just before; returns (positions, metrics, wall seconds,
+    launches, plain calls)."""
     import numpy as np
 
     from densepoints_tpu_torch import cli
@@ -623,13 +856,8 @@ def phase_main_path(device: str):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
         scene_path = write_sphere_scene(tmp)
-        settings = tmp / "settings.json"
-        settings.write_text(json.dumps({
-            "profile": "scan",
-            "expand": {"max_rounds": 4, "max_iterations": 40},
-            "optimize": {"max_iterations": 120},
-            "organizer": {"grid_scale": 4},
-        }))
+        settings_path = tmp / "settings.json"
+        settings_path.write_text(json.dumps(settings))
         out = tmp / "cloud.ply"
         captured = {}
         densify = pipeline.densify
@@ -642,20 +870,35 @@ def phase_main_path(device: str):
         _reset_counters()
         t0 = time.perf_counter()
         try:
-            rc = cli.main(["-i", str(scene_path), "-s", str(settings),
+            rc = cli.main(["-i", str(scene_path), "-s", str(settings_path),
                            "-o", str(out), "--device", device])
         finally:
             pipeline.densify = densify
         wall = time.perf_counter() - t0
-        all_launches, all_plain = _read_counters()
-        launches = all_launches["allview_ncc"]
-        plain = sum(all_plain.values())
+        launches, plain = _read_counters()
         check(rc == 0, f"cli.main returned {rc}")
-        cloud = read_ply(out)
-    metrics = captured["result"].metrics
-    pts = cloud["positions"]
-    radial = np.abs(np.linalg.norm(pts, axis=1) - SPHERE_RADIUS)
-    med = float(np.median(radial)) if len(pts) else float("inf")
+        pts = read_ply(out)["positions"]
+    check(pts.ndim == 2 and pts.shape[1] == 3, f"PLY positions {pts.shape}")
+    check(bool(np.isfinite(pts).all()), "non-finite positions in the PLY")
+    return pts, captured["result"].metrics, wall, launches, plain
+
+
+def _radial_error(pts):
+    import numpy as np
+
+    if not len(pts):
+        return float("inf")
+    return float(np.median(np.abs(np.linalg.norm(pts, axis=1)
+                                  - SPHERE_RADIUS)))
+
+
+def phase_main_path(device: str):
+    """The CLI on the sphere scene; returns (launches, stage seconds)."""
+    pts, metrics, wall, all_launches, all_plain = _cli_on_sphere(
+        device, SPHERE_SETTINGS)
+    launches = all_launches["allview_ncc"]
+    plain = sum(all_plain.values())
+    med = _radial_error(pts)
     print(f"[main] cli wall {wall:.2f} s; stage seconds: "
           + " ".join(f"{k}={v:.3f}" for k, v in metrics.times.items()),
           flush=True)
@@ -667,12 +910,77 @@ def phase_main_path(device: str):
     if device == "cuda":
         check(launches > 0, "the main path launched no kernel")
         check(plain == 0, f"the main path took the plain path {plain} times")
-    check(pts.ndim == 2 and pts.shape[1] == 3, f"PLY positions {pts.shape}")
-    check(bool(np.isfinite(pts).all()), "non-finite positions in the PLY")
     check(len(pts) >= 1000, f"only {len(pts)} patches (need >= 1000)")
     check(med < 0.01 * SPHERE_RADIUS,
           f"median radial error {med:.4f} >= {0.01 * SPHERE_RADIUS}")
     return launches, metrics.times
+
+
+def phase_seed_variants(device: str):
+    """The alternative seed front end on the sphere scene: FAST corners and
+    each of the three other matchers through `generate_seed_points`, then
+    one CLI run with the expansion pre-screen."""
+    import logging
+
+    import torch
+
+    from densepoints_tpu_torch.config import MatchingConfig
+    from densepoints_tpu_torch.io import load_scene
+    from densepoints_tpu_torch.pmvs.seed import generate_seed_points
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        scene = load_scene(write_sphere_scene(Path(tmp)), device=device)
+        cameras = scene.cameras.to(device)
+        images = torch.as_tensor(scene.images, dtype=torch.float32,
+                                 device=device)
+    counts = {}
+    for label, change in (
+        ("harris + hamming_knn", {}),
+        ("fast + hamming_knn", {"detector": "fast"}),
+        ("harris + hamming_absolute", {"matcher": "hamming_absolute"}),
+        ("harris + epipolar", {"matcher": "epipolar"}),
+        ("harris + epipolar_all", {"matcher": "epipolar_all"}),
+    ):
+        t0 = time.perf_counter()
+        points, _, mask = generate_seed_points(
+            images, cameras, MatchingConfig(**change))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts[label] = len(points)
+        print(f"[seed] {label}: {len(points)} seed points, "
+              f"{int(mask.sum())} observations, median | |p| - "
+              f"{SPHERE_RADIUS:g} | {_radial_error(points):.4f}, {dt:.2f} s",
+              flush=True)
+        check(len(points) > 0, f"{label}: no seed points")
+    # Descriptor matching must put its seeds on the sphere; descriptor-free
+    # matching accepts false partners by design and is only reported.
+    for label in ("fast + hamming_knn", "harris + hamming_absolute"):
+        check(counts[label] >= 100, f"{label}: only {counts[label]} seeds")
+
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger = logging.getLogger("densepoints_tpu_torch")
+    logger.addHandler(handler)
+    try:
+        settings = json.loads(json.dumps(SPHERE_SETTINGS))
+        settings["expand"]["prescreen"] = "claim"
+        pts, metrics, wall, launches, plain = _cli_on_sphere(device, settings)
+    finally:
+        logger.removeHandler(handler)
+    screened = [line for line in lines if "prescreen" in line]
+    for line in screened:
+        print(f"[prescreen] {line}", flush=True)
+    med = _radial_error(pts)
+    print(f"[prescreen] cli wall {wall:.2f} s, expand "
+          f"{metrics.times['expand']:.3f} s, allview_ncc launches "
+          f"{launches['allview_ncc']}, plain calls {sum(plain.values())}, "
+          f"{len(pts)} patches, median radial error {med:.4f}", flush=True)
+    check(len(screened) > 0, "the pre-screen logged no round")
+    check(sum(plain.values()) == 0, f"the pre-screen run took plain paths")
+    check(len(pts) >= 1000, f"pre-screen run: only {len(pts)} patches")
+    check(med < 0.01 * SPHERE_RADIUS,
+          f"pre-screen run: median radial error {med:.4f}")
 
 
 KERNELS = (
@@ -683,31 +991,48 @@ KERNELS = (
      "densepoints_tpu/ops/warp_ncc.py:98", "refine_k11"),
     ("ncc_pairs", "densepoints_tpu_torch/csrc/ncc_pairs.cu",
      "densepoints_tpu/ops/ncc.py:36", "32768x121_maskless"),
+    ("window_ncc", "densepoints_tpu_torch/csrc/window_ncc.cu",
+     "scripts/kernel_ablate.py:25 and scripts/kernel_ablate.py:120",
+     "script"),
+    ("window_textures", "densepoints_tpu_torch/csrc/window_textures.cu",
+     "scripts/kernel_paged_ablate.py:42", "expand_b4096_v50"),
 )
 
 
 def time_allview(device):
-    """The `--time-allview` mode: one JSON line of all-views kernel times."""
+    """The `--time-allview` mode: one JSON line of kernel-only times of the
+    all-views kernel and the slot kernel."""
     import torch
 
-    from densepoints_tpu_torch.ops import allview_ncc
-    from densepoints_tpu_torch.ops.warp import patch_frames
+    from densepoints_tpu_torch.ops import allview_ncc, warp_ncc
+    from densepoints_tpu_torch.ops.warp import compact_visible, patch_frames
+    from densepoints_tpu_torch.pmvs.optimize import _anchor_chunks
 
     out = {"root": str(ROOT), "card": torch.cuda.get_device_name(0)}
 
-    def run(label, cams, images, pos, nrm, ref, vis, k):
-        frames = patch_frames(cams, pos, nrm, ref, k)
-        kargs = _allview_kargs(cams, images, pos, frames, vis, k)
-        fn = lambda: allview_ncc.allview_scores_cuda(*kargs)  # noqa: E731
+    def medians(label, fn):
         for _ in range(5):
             fn()
         out[label] = [round(_time_ms(fn, 50), 4) for _ in range(3)]
 
+    def run(label, slots, cams, images, pos, nrm, ref, vis, k):
+        frames = patch_frames(cams, pos, nrm, ref, k)
+        kargs = _allview_kargs(cams, images, pos, frames, vis, k)
+        medians(f"{label}_ms",
+                lambda: allview_ncc.allview_scores_cuda(*kargs))
+        if slots is not None:
+            ids, ok = slots(vis)
+            sargs = (*kargs[:9], ids.to(torch.int32).contiguous(),
+                     ok.contiguous(), k)
+            medians(f"slot_{label}_ms",
+                    lambda: warp_ncc.slot_scores_cuda(*sargs))
+
     refine = refine_inputs(device)
-    run("refine_k11_ms", *refine, 11)
-    run("refine_k16_ms", *refine, 16)
+    run("refine_k11", lambda vis: compact_visible(vis, 8), *refine, 11)
+    run("refine_k16", None, *refine, 16)
     del refine
-    run("dtu_k16_ms", *dtu_inputs(device), 16)
+    run("dtu_k16", lambda vis: _anchor_chunks(vis, 16)[0],
+        *dtu_inputs(device), 16)
     print(json.dumps(out), flush=True)
 
 
@@ -730,8 +1055,13 @@ def main() -> int:
         phase_build()
         results = phase_kernels("cuda")
         launches = phase_slice_path("cuda")
-        # The all-views kernel's own path is the CLI run; the other two are
-        # counted on the slot-scoring path above.
+        ablation = phase_ablation_path()
+        for name in ("window_ncc", "window_textures"):
+            launches[name] = ablation[name]
+        # The all-views kernel's own path is the CLI run; the slot and
+        # row-wise kernels are counted on the slot-scoring path, the two
+        # window kernels on the ablation path above.
+        phase_seed_variants("cuda")
         launches["allview_ncc"], _ = phase_main_path("cuda")
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
@@ -754,8 +1084,10 @@ def main() -> int:
             "plain_ms": shown["plain_ms"],
             "bound_ms": shown["bound_ms"],
             "bound_by": shown["bound_by"],
-            # No single PyTorch call computes a projective warp + NCC, or
-            # a clamped row-wise NCC.
+            # No single PyTorch call computes a projective warp + NCC, a
+            # clamped row-wise NCC, or window-relative sampling with zeros
+            # outside the window (`grid_sample` clamps or pads by image,
+            # takes no per-slot window and no NCC).
             "library_ms": None,
         })
     print(smi_line, flush=True)

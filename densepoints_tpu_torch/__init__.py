@@ -4,11 +4,14 @@
 The package mirrors the layout and function names of the JAX package
 `densepoints_tpu`, which stays the numerical reference:
 
-  core/       batched cameras, photometric scores
-  geometry/   fundamental matrices, epipolar lines, masked DLT triangulation
-  ops/        warp/sampling, the all-views warp+NCC scoring pass (a CUDA
-              kernel on the GPU, plain torch on the CPU), batched Nelder-Mead
-  features/   Harris detector, BRIEF descriptors, Hamming matching, tracks
+  core/       batched cameras, photometric scores, grid cells
+  geometry/   fundamental matrices, epipolar lines, masked DLT
+              triangulation, homographies
+  ops/        warp/sampling, the warp+NCC scoring passes (CUDA kernels on
+              the GPU, plain torch on the CPU), batched Nelder-Mead
+  features/   Harris and FAST detectors, BRIEF descriptors, Hamming and
+              epipolar matching, tracks
+  scripts/    kernel ablation programs (`python -m`)
   pmvs/       patch state, visibility, optimization, organizer, expansion,
               filtering, the `densify` driver
   io/         scene JSON reader, PLY

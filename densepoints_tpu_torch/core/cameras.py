@@ -12,7 +12,13 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["Cameras", "decompose_projection_matrix", "is_inside"]
+__all__ = [
+    "Cameras",
+    "decompose_projection_matrix",
+    "is_inside",
+    "project_points",
+    "project_point_all_views",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +144,20 @@ def decompose_projection_matrix(P: np.ndarray):
     K = K / K[2, 2]
     E = np.concatenate([Q, (-Q @ C)[:, None]], axis=1)
     return K, E, C
+
+
+def project_points(P: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Project world points with the raw projection matrix: P (..., 3, 4),
+    points (..., 3) -> pixel coordinates (..., 2)."""
+    xyz = torch.einsum("...ij,...j->...i", P[..., :3], points) + P[..., 3]
+    return xyz[..., :2] / xyz[..., 2:3]
+
+
+def project_point_all_views(P_all: torch.Tensor, points: torch.Tensor):
+    """Project (..., 3) points into all V views: (V, ..., 2)."""
+    n = points.ndim - 1
+    P = P_all.reshape(P_all.shape[:1] + (1,) * n + (3, 4))
+    return project_points(P, points[None])
 
 
 def is_inside(xy: torch.Tensor, width, height) -> torch.Tensor:

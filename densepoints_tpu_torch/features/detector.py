@@ -1,9 +1,10 @@
 """Corner detection + grid filtering.
 
-A Harris corner response evaluated as a stencil over the whole image batch
+A corner response evaluated as a stencil over the whole image batch: Harris
 (separable 1-D correlations by slicing, so no convolution library and no
-cuDNN), 3x3 non-maximum suppression, then the top `max_per_cell` responses
-per cell of a `cell_size` grid and the global top `max_keypoints`.
+cuDNN) or the FAST-9/16 segment test (16 shifted slices). Then 3x3
+non-maximum suppression, the top `max_per_cell` responses per cell of a
+`cell_size` grid and the global top `max_keypoints`.
 
 Ties break toward the LOWER index (a stable descending sort), as
 `jax.lax.top_k` does: `torch.topk` promises no order among equal values.
@@ -12,7 +13,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["harris_response", "detect_keypoints", "gaussian_blur"]
+__all__ = [
+    "harris_response",
+    "fast_response",
+    "detect_keypoints",
+    "gaussian_blur",
+]
 
 _SOBEL = (-1.0, 0.0, 1.0)
 _SMOOTH = (0.25, 0.5, 0.25)
@@ -59,6 +65,52 @@ def harris_response(
     return det - k * tr * tr
 
 
+# Bresenham circle of radius 3: the 16 (dy, dx) ring offsets of FAST-16,
+# clockwise from 12 o'clock.
+_FAST_RING = (
+    (-3, 0), (-3, 1), (-2, 2), (-1, 3), (0, 3), (1, 3), (2, 2), (3, 1),
+    (3, 0), (3, -1), (2, -2), (1, -3), (0, -3), (-1, -3), (-2, -2), (-3, -1),
+)
+
+
+def fast_response(
+    images: torch.Tensor, threshold: float = 10.0, arc: int = 9
+) -> torch.Tensor:
+    """FAST segment-test corner response as a pure stencil.
+
+    A pixel is a corner when `arc` contiguous pixels of the 16-pixel ring
+    (edge-replicated at the border) are all brighter, or all darker, than
+    the centre by more than `threshold`; its response is the summed margin
+    over the brighter (darker) ring pixels, used only for ranking.
+    Non-corners score -inf. images: (..., H, W) -> the same shape."""
+    img = images.to(torch.float32)
+    H, W = img.shape[-2:]
+    rows = torch.arange(-3, H + 3, device=img.device).clamp(0, H - 1)
+    cols = torch.arange(-3, W + 3, device=img.device).clamp(0, W - 1)
+    padded = img.index_select(-2, rows).index_select(-1, cols)
+    diffs = torch.stack([
+        padded[..., 3 + dy : 3 + dy + H, 3 + dx : 3 + dx + W] - img
+        for dy, dx in _FAST_RING
+    ])  # (16, ..., H, W)
+    bright = diffs > threshold
+    dark = diffs < -threshold
+    corner_b = torch.zeros_like(img, dtype=torch.bool)
+    corner_d = torch.zeros_like(img, dtype=torch.bool)
+    for s in range(16):  # OR over the starts of an AND over `arc` in a row
+        run_b, run_d = bright[s], dark[s]
+        for j in range(1, arc):
+            run_b = run_b & bright[(s + j) % 16]
+            run_d = run_d & dark[(s + j) % 16]
+        corner_b = corner_b | run_b
+        corner_d = corner_d | run_d
+    score_b = torch.clamp_min(diffs - threshold, 0.0).sum(dim=0)
+    score_d = torch.clamp_min(-diffs - threshold, 0.0).sum(dim=0)
+    score = torch.where(corner_b, score_b, 0.0) + torch.where(
+        corner_d, score_d, 0.0
+    )
+    return torch.where(corner_b | corner_d, score, float("-inf"))
+
+
 def _nms3(resp: torch.Tensor) -> torch.Tensor:
     """3x3 non-maximum suppression mask. Exact ties break by raster order:
     strict > against earlier neighbours, >= against later ones."""
@@ -88,19 +140,21 @@ def detect_keypoints(
     k: float = 0.04,
     border: int = 8,
     method: str = "harris",
+    fast_threshold: float = 10.0,
 ):
-    """Grid-filtered Harris corners of a batch of images (V, H, W).
+    """Grid-filtered corners of a batch of images (V, H, W); `method` is
+    "harris" or "fast".
 
     Returns (xy (V, N, 2) f32, response (V, N) f32, valid (V, N) bool),
     N = max_keypoints."""
-    if method != "harris":
-        raise NotImplementedError(
-            f"detector {method!r}: only 'harris' is ported (the FAST "
-            "detector waits, ROADMAP A.8)"
-        )
     V, H, W = images.shape
     dev = images.device
-    resp = harris_response(images, k=k)
+    if method == "harris":
+        resp = harris_response(images, k=k)
+    elif method == "fast":
+        resp = fast_response(images, threshold=fast_threshold)
+    else:
+        raise ValueError(f"unknown detector {method!r}")
     ys = torch.arange(H, device=dev)[:, None]
     xs = torch.arange(W, device=dev)[None, :]
     in_border = (

@@ -12,7 +12,7 @@ import torch
 
 from densepoints_tpu_torch.geometry.triangulation import triangulate
 
-__all__ = ["build_tracks", "triangulate_tracks"]
+__all__ = ["build_tracks", "build_tracks_onehop", "triangulate_tracks"]
 
 
 class _UnionFind:
@@ -94,6 +94,53 @@ def build_tracks(
             np.zeros((0, num_views, 2), np.float32),
             np.zeros((0, num_views), bool),
             np.zeros((0, num_views), np.int32),
+        )
+    return np.stack(obs_rows), np.stack(mask_rows), np.stack(idx_rows)
+
+
+def build_tracks_onehop(
+    num_views: int,
+    keypoints: np.ndarray,
+    pair_list: np.ndarray,
+    matches_topk: np.ndarray,
+    min_views: int = 2,
+):
+    """One-hop track assembly: each keypoint with its direct partners across
+    every pair it is the left keypoint of, with no transitive merging. With
+    all-pairs epipolar matching this yields one (possibly noisy) track per
+    matched keypoint.
+
+    matches_topk: (P, N, K), partner keypoint indices in pair_list[p][1]
+    for each keypoint of pair_list[p][0], -1 empty. Returns (obs (T, V, 2)
+    f32, mask (T, V) bool, kp_index (T, V) int32)."""
+    keypoints = np.asarray(keypoints)
+    matches_topk = np.asarray(matches_topk)
+    V = num_views
+    partners: dict[tuple[int, int], list[tuple[int, int]]] = {}
+    for p, (a, b) in enumerate(pair_list):
+        m = matches_topk[p]  # (N, K)
+        for i, kk in zip(*np.nonzero(m >= 0)):
+            partners.setdefault((int(a), int(i)), []).append(
+                (int(b), int(m[i, kk]))
+            )
+    obs_rows, mask_rows, idx_rows = [], [], []
+    for (a, i), plist in partners.items():
+        obs = np.zeros((V, 2), np.float32)
+        mask = np.zeros((V,), bool)
+        kpi = np.full((V,), -1, np.int32)
+        obs[a], mask[a], kpi[a] = keypoints[a, i], True, i
+        for b, j in plist:
+            if not mask[b]:  # the first partner in a view wins
+                obs[b], mask[b], kpi[b] = keypoints[b, j], True, j
+        if mask.sum() >= min_views:
+            obs_rows.append(obs)
+            mask_rows.append(mask)
+            idx_rows.append(kpi)
+    if not obs_rows:
+        return (
+            np.zeros((0, V, 2), np.float32),
+            np.zeros((0, V), bool),
+            np.zeros((0, V), np.int32),
         )
     return np.stack(obs_rows), np.stack(mask_rows), np.stack(idx_rows)
 

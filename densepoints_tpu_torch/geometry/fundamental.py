@@ -14,6 +14,7 @@ __all__ = [
     "fundamental_matrices_for_pairs",
     "epipolar_lines",
     "point_line_distance",
+    "epipolar_distance_matrix",
 ]
 
 
@@ -57,3 +58,13 @@ def point_line_distance(lines: torch.Tensor, points: torch.Tensor):
     a, b, c = lines[..., 0], lines[..., 1], lines[..., 2]
     num = torch.abs(a * points[..., 0] + b * points[..., 1] + c)
     return num / torch.clamp_min(torch.sqrt(a * a + b * b), 1e-12)
+
+
+def epipolar_distance_matrix(
+    F: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor
+) -> torch.Tensor:
+    """All-pairs point-to-epipolar-line distances: F (..., 3, 3), pts1
+    (..., N, 2), pts2 (..., M, 2) -> (..., N, M); entry (i, j) is the
+    distance of pts2[j] to the epipolar line of pts1[i]."""
+    lines = epipolar_lines(F, pts1)  # (..., N, 3)
+    return point_line_distance(lines[..., :, None, :], pts2[..., None, :, :])

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["triangulate"]
+__all__ = ["triangulate", "triangulate_pair"]
 
 
 def triangulate(
@@ -36,3 +36,12 @@ def triangulate(
     _, vecs = torch.linalg.eigh(AtA)
     X = vecs[..., 0]
     return X[..., :3] / X[..., 3:4]
+
+
+def triangulate_pair(
+    P1: torch.Tensor, x1: torch.Tensor, P2: torch.Tensor, x2: torch.Tensor
+) -> torch.Tensor:
+    """Two-view convenience wrapper: P1, P2 (3, 4); x1, x2 (B, 2) -> (B, 3)."""
+    B = x1.shape[0]
+    P = torch.stack([P1.expand(B, 3, 4), P2.expand(B, 3, 4)], dim=1)
+    return triangulate(P, torch.stack([x1, x2], dim=1))

@@ -2,6 +2,7 @@
 
   round:  frontier (alive, >= 2 visible views, not yet expanded)
           -> 4 candidates each (tangent-plane steps of one grid cell)
+          -> optionally the occupancy pre-screen (`expand.prescreen`)
           -> batched simplex optimization (texture 11)
           -> batched visibility re-classification + NCC filter
           -> deterministic bulk grid insertion (scatter-priority dedup)
@@ -28,6 +29,7 @@ from densepoints_tpu_torch.pmvs.organizer import (
     bulk_try_insert,
     candidate_cells,
     make_grids,
+    prescreen_candidates,
 )
 from densepoints_tpu_torch.pmvs.patch import PatchState
 from densepoints_tpu_torch.pmvs.visibility import classify_views
@@ -64,11 +66,6 @@ def expand_patches(
 
     Returns (PatchState with only accepted patches, grids).
     """
-    if expand_config.prescreen != "off":
-        raise NotImplementedError(
-            f"expand.prescreen={expand_config.prescreen!r}: the occupancy "
-            "pre-screen is not ported yet (ROADMAP A.6)"
-        )
     grid_scale = organizer_config.grid_scale
     min_grids = organizer_config.min_grids_to_accept
     grids = make_grids(
@@ -105,6 +102,24 @@ def expand_patches(
         if frontier.capacity == 0:
             break
         cand = make_expansion_candidates(cameras, frontier, grid_scale)
+        if expand_config.prescreen != "off":
+            # Drop candidates that cannot reach min_grids cell wins before
+            # paying for Nelder-Mead, the dominant cost of a round.
+            pre_cells = candidate_cells(
+                grids, cameras, cand.position, cand.vis, grid_scale
+            )
+            keep = prescreen_candidates(
+                grids, pre_cells, cand.alive, min_grids,
+                expand_config.prescreen,
+            )
+            n_before = int(cand.alive.sum())
+            cand = cand.masked(keep & cand.alive).compact()
+            log.info(
+                "expansion round %d: prescreen %d -> %d candidates",
+                round_idx, n_before, cand.capacity,
+            )
+            if cand.capacity == 0:
+                break
         # Optimize at the expansion texture size, then re-classify
         # visibility and NCC-filter.
         cand = optimize_patches(

@@ -20,6 +20,7 @@ __all__ = [
     "make_grids",
     "candidate_cells",
     "bulk_try_insert",
+    "prescreen_candidates",
 ]
 
 
@@ -102,6 +103,41 @@ def _claim_rounds(cell_ids, active, prio, fill, K: int, n_cells: int):
             won_r.reshape(-1).to(fill_ext.dtype),
         )
     return won
+
+
+def prescreen_candidates(
+    grids: OccupancyGrids,
+    cell_ids: torch.Tensor,
+    candidate_alive: torch.Tensor,
+    min_grids: int = 2,
+    mode: str = "claim",
+):
+    """Which candidates could still be accepted at insertion time.
+
+    Both modes are necessary conditions for `bulk_try_insert` acceptance,
+    evaluated on the pose before optimization (which moves a candidate by
+    less than about one cell, so the screen is slightly soft):
+
+      * "free":  >= min_grids of the candidate's valid cells have at least
+        one free slot (ignores contention within the batch);
+      * "claim": the candidate would win >= min_grids cells in the
+        deterministic K-round claim against the rest of this batch:
+        the `bulk_try_insert` contest without the writes.
+
+    Returns keep (B,) bool."""
+    K = grids.slots_per_cell
+    n_cells = grids.cells.numel() // K
+    fill = (grids.cells.reshape(n_cells, K) >= 0).sum(dim=1)
+    active = candidate_alive[:, None] & (cell_ids >= 0)
+    if mode == "free":
+        has_free = active & (fill[torch.where(active, cell_ids, 0)] < K)
+        return has_free.sum(dim=1) >= min_grids
+    if mode != "claim":
+        raise ValueError(f"unknown prescreen mode {mode!r}")
+    B, V = cell_ids.shape
+    prio = torch.arange(B, device=cell_ids.device)[:, None].expand(B, V)
+    won = _claim_rounds(cell_ids, active, prio, fill, K, n_cells)
+    return won.sum(dim=1) >= min_grids
 
 
 def bulk_try_insert(

@@ -53,9 +53,9 @@ class DensifyResult:
 
 
 def check_supported(config: PipelineConfig):
-    """Raise NotImplementedError for driver branches the port lacks (the
-    detector, matcher, prescreen and sampling branches raise in their own
-    stage modules)."""
+    """Raise NotImplementedError for pipeline branches the port lacks (an
+    unknown detector, matcher, pre-screen mode or sampling route raises
+    ValueError in its own stage module)."""
     unsupported = [
         (config.ba.enable, "ba.enable", "A.11"),
         (config.multiscale.levels > 1, "multiscale.levels > 1", "A.11"),

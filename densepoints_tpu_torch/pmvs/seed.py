@@ -22,11 +22,15 @@ from densepoints_tpu_torch.features.descriptors import (
 )
 from densepoints_tpu_torch.features.detector import detect_keypoints
 from densepoints_tpu_torch.features.matching import (
+    direct_epipolar_pair,
+    direct_epipolar_pair_topk,
     filter_matches_epipolar,
     match_pair,
+    match_pair_absolute,
 )
 from densepoints_tpu_torch.features.tracks import (
     build_tracks,
+    build_tracks_onehop,
     triangulate_tracks,
 )
 from densepoints_tpu_torch.geometry.fundamental import (
@@ -82,12 +86,16 @@ def generate_seed_points(
 ):
     """Detect, match, track and triangulate -> (S, 3) seed points (host).
 
+    `config.matcher` selects the matching: "hamming_knn" (2-NN + Lowe
+    ratio) and "hamming_absolute" (1-NN under an absolute cutoff) match
+    BRIEF descriptors and filter along the epipolar line; "epipolar" takes
+    the keypoint closest to the line and "epipolar_all" the
+    `config.epipolar_topk` closest, consumed by one-hop track assembly.
     Returns (points, obs, mask); obs/mask are the track observations."""
-    if config.matcher != "hamming_knn":
-        raise NotImplementedError(
-            f"matcher {config.matcher!r}: only 'hamming_knn' is ported (the "
-            "other matchers wait, ROADMAP A.8)"
-        )
+    matcher = config.matcher
+    if matcher not in ("hamming_knn", "hamming_absolute", "epipolar",
+                       "epipolar_all"):
+        raise ValueError(f"unknown matcher {matcher!r}")
     V = cameras.num_views
     dev = images.device
     if pairs is None:
@@ -100,43 +108,69 @@ def generate_seed_points(
         k=config.harris_k,
         border=config.descriptor_patch_radius + 1,
         method=config.detector,
+        fast_threshold=config.fast_threshold,
     )
     log.info(
         "detected keypoints per view: %s", valid.sum(dim=1).tolist()
     )
-    pattern = torch.as_tensor(
-        brief_pattern(config.descriptor_bits, config.descriptor_patch_radius),
-        device=dev,
-    )
-    desc = compute_descriptors(images, xy, pattern)
+    desc = None
+    if matcher in ("hamming_knn", "hamming_absolute"):
+        pattern = torch.as_tensor(
+            brief_pattern(
+                config.descriptor_bits, config.descriptor_patch_radius
+            ),
+            device=dev,
+        )
+        desc = compute_descriptors(images, xy, pattern)
     F = torch.as_tensor(
         fundamental_matrices_for_pairs(
             cameras.P.cpu().numpy().astype(np.float64), pairs
         ).astype(np.float32),
         device=dev,
     )
+
+    def match_chunk(Fc, a, b):
+        if matcher == "hamming_knn":
+            m, _ = match_pair(desc[a], desc[b], valid[a], valid[b],
+                              config.lowe_ratio)
+        elif matcher == "hamming_absolute":
+            m, _ = match_pair_absolute(desc[a], desc[b], valid[a], valid[b],
+                                       config.max_hamming_distance)
+        elif matcher == "epipolar":
+            return direct_epipolar_pair(
+                Fc, xy[a], xy[b], valid[a], valid[b],
+                config.max_epipolar_distance,
+            )[0]
+        else:
+            return direct_epipolar_pair_topk(
+                Fc, xy[a], xy[b], valid[a], valid[b],
+                config.max_epipolar_distance, config.epipolar_topk,
+            )[0]
+        return filter_matches_epipolar(
+            Fc, xy[a], xy[b], m, config.max_epipolar_distance
+        )
+
     i1 = torch.as_tensor(pairs[:, 0], dtype=torch.int64, device=dev)
     i2 = torch.as_tensor(pairs[:, 1], dtype=torch.int64, device=dev)
     chunk = _pair_chunk(xy.shape[1])
-    parts = []
-    for lo in range(0, len(pairs), chunk):
-        a, b = i1[lo : lo + chunk], i2[lo : lo + chunk]
-        m, _ = match_pair(desc[a], desc[b], valid[a], valid[b],
-                          config.lowe_ratio)
-        parts.append(filter_matches_epipolar(
-            F[lo : lo + chunk], xy[a], xy[b], m,
-            config.max_epipolar_distance,
-        ))
-    matches = (
-        torch.cat(parts).cpu().numpy()
-        if parts else np.zeros((0, xy.shape[1]), np.int64)
-    )
-    log.info("matches per pair: %s", (matches >= 0).sum(axis=1).tolist())
-    obs, mask, _ = build_tracks(
-        V, xy.cpu().numpy(), pairs, matches, min_views=2
-    )
+    parts = [
+        match_chunk(F[lo : lo + chunk], i1[lo : lo + chunk],
+                    i2[lo : lo + chunk])
+        for lo in range(0, len(pairs), chunk)
+    ]
+    onehop = matcher == "epipolar_all"
+    if parts:
+        matches = torch.cat(parts).cpu().numpy()
+    else:
+        tail = (config.epipolar_topk,) if onehop else ()
+        matches = np.zeros((0, xy.shape[1]) + tail, np.int64)
+    per_pair = (matches >= 0).reshape(len(matches), -1).sum(axis=1)
+    log.info("matches per pair: %s", per_pair.tolist())
+    assemble = build_tracks_onehop if onehop else build_tracks
+    obs, mask, _ = assemble(V, xy.cpu().numpy(), pairs, matches, min_views=2)
     points = triangulate_tracks(cameras.P, obs, mask)
-    log.info("tracks: %d -> seed points", len(points))
+    log.info("tracks%s: %d -> seed points",
+             " (one-hop)" if onehop else "", len(points))
     return points, obs, mask
 
 

@@ -1,9 +1,10 @@
 """The port's occupancy organizer, filters and one expansion round vs JAX.
 
 Organizer and filters are integer scatter/gather logic over identical
-inputs: exactly equal results. An expansion round runs Nelder-Mead, whose
-accept decisions can flip on last-bit float differences: the accepted
-counts must agree within 2%.
+inputs: exactly equal results (the pre-screen included). An expansion round
+runs Nelder-Mead, whose accept decisions can flip on last-bit float
+differences: the accepted counts must agree within 2%, with and without
+the pre-screen.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +22,8 @@ from densepoints_tpu.pmvs.filter import run_filters as jax_run_filters
 from densepoints_tpu.pmvs.organizer import bulk_try_insert as jax_insert
 from densepoints_tpu.pmvs.organizer import candidate_cells as jax_cells
 from densepoints_tpu.pmvs.organizer import make_grids as jax_make_grids
+from densepoints_tpu.pmvs.organizer import OccupancyGrids as JaxOccupancyGrids
+from densepoints_tpu.pmvs.organizer import prescreen_candidates as jax_prescreen
 from densepoints_tpu_torch.config import (
     ExpandConfig,
     FilterConfig,
@@ -37,6 +40,7 @@ from densepoints_tpu_torch.pmvs.organizer import (
     bulk_try_insert,
     candidate_cells,
     make_grids,
+    prescreen_candidates,
 )
 from tests.synthetic import TexturedPlaneScene
 from tests.torch_port_util import torch_cameras, torch_state
@@ -116,6 +120,64 @@ def test_bulk_try_insert_writes_each_cell_once():
     assert new.cells.reshape(-1).tolist() == [7, 7, -1]
 
 
+def _random_occupancy(K, seed=3, B=40):
+    """Partly filled grids of 3 views of 4 x 4 cells and a contended batch."""
+    rng = np.random.default_rng(seed)
+    shape = (3, 4, 4) if K == 1 else (3, 4, 4, K)
+    occupied = rng.choice([-1, -1, -1, 5], size=shape).astype(np.int32)
+    if K > 1:  # slots fill in ascending order
+        occupied = -np.sort(-occupied, axis=-1)
+    cells = np.where(
+        rng.uniform(size=(B, 3)) < 0.8, rng.integers(0, 3 * 16, size=(B, 3)),
+        -1,
+    ).astype(np.int32)
+    alive = rng.uniform(size=(B,)) < 0.9
+    return occupied, cells, alive
+
+
+def _grids_pair(occupied):
+    jg = JaxOccupancyGrids(
+        cells=jnp.asarray(occupied), cols=jnp.full((3,), 4, jnp.int32),
+        rows=jnp.full((3,), 4, jnp.int32),
+    )
+    tg = OccupancyGrids(
+        cells=torch.as_tensor(occupied).long(),
+        cols=torch.full((3,), 4), rows=torch.full((3,), 4),
+    )
+    return jg, tg
+
+
+@pytest.mark.parametrize("K", [1, 2])
+@pytest.mark.parametrize("mode", ["free", "claim"])
+def test_prescreen_candidates_match(mode, K):
+    occupied, cells, alive = _random_occupancy(K)
+    jg, tg = _grids_pair(occupied)
+    want = np.asarray(jax_prescreen(
+        jg, jnp.asarray(cells), jnp.asarray(alive), 2, mode))
+    got = prescreen_candidates(
+        tg, torch.as_tensor(cells).long(), torch.as_tensor(alive), 2, mode
+    ).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < want.sum() < alive.sum()  # the screen dropped something
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_prescreen_matches_insert_acceptance(K):
+    """"claim" is the `bulk_try_insert` contest without the writes: on the
+    same cells it agrees exactly with the acceptance; "free" is a necessary
+    condition, so it keeps everything "claim" keeps."""
+    occupied, cells, alive = _random_occupancy(K, seed=4)
+    _, tg = _grids_pair(occupied)
+    c, a = torch.as_tensor(cells).long(), torch.as_tensor(alive)
+    keep = prescreen_candidates(tg, c, a, 2, "claim")
+    accepted, _ = bulk_try_insert(tg, c, a, torch.arange(len(a)), 2)
+    assert torch.equal(keep, accepted)
+    free = prescreen_candidates(tg, c, a, 2, "free")
+    assert bool(free[keep].all())
+    with pytest.raises(ValueError, match="unknown prescreen mode"):
+        prescreen_candidates(tg, c, a, 2, "maybe")
+
+
 FILTER_CONFIGS = [
     {},
     {"min_support_cells": 4, "depth_consistency": 0.005,
@@ -166,7 +228,7 @@ def test_expansion_candidates_step_one_cell(rng):
     np.testing.assert_allclose(steps.numpy(), 8.0, rtol=0.2)
 
 
-def test_expand_round_accepts_like_jax(rng):
+def _expand_round_accepts_like_jax(rng, prescreen):
     cams, scene = _cams(rng)
     images = scene.render_all()
     V = cams.num_views
@@ -179,15 +241,24 @@ def test_expand_round_accepts_like_jax(rng):
     vis[:, 0] = False
     st = JaxPatchState.create(pos, normal, np.zeros(n, np.int32), vis)
     want, _ = jax_expand(
-        jnp.asarray(images), cams, st, JaxExpandConfig(max_rounds=1),
+        jnp.asarray(images), cams, st,
+        JaxExpandConfig(max_rounds=1, prescreen=prescreen),
         JaxOrganizerConfig(), JaxOptimizeConfig(max_iterations=30),
     )
     got, grids = expand_patches(
         torch.as_tensor(images), torch_cameras(cams), torch_state(st),
-        ExpandConfig(max_rounds=1), OrganizerConfig(),
+        ExpandConfig(max_rounds=1, prescreen=prescreen), OrganizerConfig(),
         OptimizeConfig(max_iterations=30),
     )
     n_jax, n_torch = want.capacity - n, got.capacity - n
     assert n_jax > 10
     assert abs(n_torch - n_jax) <= 0.02 * n_jax + 1e-9, (n_torch, n_jax)
     assert int((grids.cells >= 0).sum()) >= 2 * got.capacity
+
+
+def test_expand_round_accepts_like_jax(rng):
+    _expand_round_accepts_like_jax(rng, "off")
+
+
+def test_expand_round_with_prescreen_accepts_like_jax(rng):
+    _expand_round_accepts_like_jax(rng, "claim")

@@ -22,6 +22,7 @@ from densepoints_tpu_torch.config import (
     BAConfig,
     ExpandConfig,
     MatchingConfig,
+    MultiscaleConfig,
     OptimizeConfig,
     PipelineConfig,
 )
@@ -116,15 +117,48 @@ def test_cli_main(tmp_path, plane_scene):
     assert len(read_ply(out)["positions"]) > 10
 
 
-@pytest.mark.parametrize("change", [
-    {"ba": BAConfig(enable=True)},
-    {"matching": MatchingConfig(detector="fast")},
-    {"matching": MatchingConfig(matcher="epipolar")},
-    {"expand": ExpandConfig(prescreen="claim")},
-], ids=["ba", "fast", "epipolar", "prescreen"])
-def test_branches_outside_the_slice_raise(plane_scene, change):
+_QUICK = {"max_keypoints_per_view": 256}
+
+
+@pytest.mark.parametrize("change,ported", [
+    ({"ba": BAConfig(enable=True)}, False),
+    ({"multiscale": MultiscaleConfig(levels=2)}, False),
+    ({"matching": MatchingConfig(detector="fast", **_QUICK)}, True),
+    ({"matching": MatchingConfig(matcher="epipolar", **_QUICK)}, True),
+    ({"expand": ExpandConfig(prescreen="claim", max_rounds=1)}, True),
+], ids=["ba", "multiscale", "fast", "epipolar", "prescreen"])
+def test_branches_outside_the_slice_raise(plane_scene, change, ported):
+    """A branch the port lacks raises and names its ROADMAP item; the
+    branches ported since (FAST, the other matchers, the pre-screen) run
+    and reconstruct the plane."""
+    config = _config().replace(
+        optimize=OptimizeConfig(max_iterations=20),
+        expand=ExpandConfig(max_rounds=1),
+    ).replace(**change)
+    scene = load_scene(plane_scene, device="cpu")
+    if not ported:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            densify(scene, config, device="cpu")
+        return
+    result = densify(scene, config, device="cpu")
+    # Descriptor-free matching on 5 close views merges nearly every keypoint
+    # into one union-find track (as in the JAX package): a handful of
+    # patches. The other two give a cloud on the plane z = 0.
+    few = change.get("matching", MatchingConfig()).matcher == "epipolar"
+    assert result.patches.capacity >= (1 if few else 20)
+    assert np.isfinite(result.positions).all()
+    if not few:
+        assert np.median(np.abs(result.positions[:, 2])) < 0.1
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"matching": MatchingConfig(detector="orb")}, "unknown detector"),
+    ({"matching": MatchingConfig(matcher="flann")}, "unknown matcher"),
+    ({"expand": ExpandConfig(prescreen="maybe")}, "unknown prescreen"),
+], ids=["detector", "matcher", "prescreen"])
+def test_unknown_values_raise_value_error(plane_scene, change, match):
     config = _config().replace(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=match):
         densify(load_scene(plane_scene, device="cpu"), config, device="cpu")
 
 
