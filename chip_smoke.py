@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-allview
+    python3 chip_smoke.py --profile-main
+    python3 chip_smoke.py --kernel-resources
 
 Phases, each printing its own lines; any failure exits non-zero and prints
 no result line:
@@ -15,13 +17,17 @@ no result line:
      patches, k = 11 and 16, plus mixed-visibility, no-visibility and
      off-frustum rows) and a DTU shape (49 views of 1600 x 1200, 16384
      patches, ~25 visible views each, k = 16): scores within 1e-4, equal
-     anchors, equal sentinel placement; CUDA-event times of both;
+     anchors, equal sentinel placement; CUDA-event times of both; then at
+     small awkward shapes (1 and 130 views, k = 1, 5, 7 and 21, batches of
+     0 and 1), and a profile showing that the entry point runs one device
+     kernel and nothing before it;
   4. row-wise NCC kernel vs plain: `ops.ncc` at (32768, 121) and
      (262144, 256), maskless and masked (with empty-mask rows): within
      1e-5, equal sentinels;
   5. slot kernel vs plain: `ops.warp_ncc` at the refine shape (8 slots,
      k = 11 and 16) and the DTU shape (4 anchor-pinned chunks of 16 slots,
-     k = 16): scores within 1e-4, equal sentinel placement;
+     k = 16): scores within 1e-4, equal sentinel placement; the awkward
+     shapes too, with a table of one slot and view ids outside the stack;
   6. window kernels vs plain: `ops.window_ncc` (`full`, `staged`,
      `warp_slot`, and the gradient form against its own plain version) and
      `ops.window_textures` (`full`, `staged`, `warp_slot`) at the shapes of
@@ -59,10 +65,16 @@ With `--time-allview` the script only builds the kernels and prints one
 JSON line of kernel-only times (three medians of 50 CUDA-event timings):
 the all-views kernel at the refine k = 11, k = 16 and DTU k = 16 shapes,
 the slot kernel at the refine k = 11 shape (8 slots) and on the first DTU
-chunk (16 slots). It takes the package
+chunk (16 slots), and the entry point `allview_scores` at the refine k = 11
+shape (`wrapper_refine_k11_ms` by CUDA events, `wrapper_host_refine_k11_ms`
+on the host's clock until the call returns). It takes the package
 from the directory it lies in, so a copy of it placed in a checkout of
 another commit times that commit's kernel: run the two in turns (parent,
 change, change, parent) within one job to compare them on one card.
+`--profile-main` runs the CLI on the sphere scene under `torch.profiler`
+and prints one JSON line of its device ops, launches and stage seconds.
+`--kernel-resources` prints the registers and spills `ptxas` reports for
+the two warp + NCC kernels.
 """
 from __future__ import annotations
 
@@ -96,6 +108,11 @@ TEXEL_FLOPS = 47
 # Per texture, A, B and C: three 3 x 3 products with the view's K R (45),
 # one subtraction of the centre (3) and two scalings by 2 / k (6).
 TEXTURE_FLOPS = 54
+# Per patch, the frame (sx, sy): a cross product (9), p + x_axis (3), two
+# decomposed projections of 35 (3 subtractions, two 3 x 3 products, 2
+# divisions), their difference and its norm (6), the clamp and the division
+# of the scale (2) and two scalings (6).
+PATCH_FLOPS = 96
 # Row-wise NCC, per element: two sums, two centrings, three products and
 # three sums (10); the mask adds five multiplies and a count (15).
 NCC_ELEMENT_FLOPS = {False: 10, True: 15}
@@ -152,13 +169,15 @@ def _bound(nbytes, flops):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def _warp_bound(images, others, textures, k):
-    """Bound of a warp+NCC kernel that sampled `textures` k x k textures:
-    of the image stack it must read no more than 4 f32 taps per texel, and
-    no more than the stack once; `others` are the remaining inputs and the
-    outputs, moved once each."""
+def _warp_bound(images, others, patches, textures, k):
+    """Bound of a warp+NCC function that framed `patches` patches and
+    sampled `textures` k x k textures: of the image stack it must read no
+    more than 4 f32 taps per texel, and no more than the stack once;
+    `others` are the remaining inputs (cameras, position, normal, reference
+    view, visibility or slots) and the outputs, moved once each."""
     image_bytes = min(_nbytes(images), textures * k * k * 4 * 4)
-    flops = textures * (k * k * TEXEL_FLOPS + TEXTURE_FLOPS)
+    flops = (patches * PATCH_FLOPS
+             + textures * (k * k * TEXEL_FLOPS + TEXTURE_FLOPS))
     return _bound(image_bytes + _nbytes(*others), flops)
 
 
@@ -257,33 +276,79 @@ def _corner_margin(cams, pos, frames, b, v):
                               h - pix[:, 1]]).abs().min())
 
 
-def _time_ms(fn, reps=20):
-    """Median CUDA-event milliseconds of `reps` calls (call it warm)."""
+def _time_ms(fn, reps=20, batch=1):
+    """Median CUDA-event milliseconds per call over `reps` timings (call it
+    warm). With `batch` > 1 each timing queues `batch` calls behind a short
+    device-side sleep, so that the card runs them back to back and a kernel
+    shorter than the host's time to launch it (~0.05 ms through a Python
+    wrapper) is timed and not the host."""
     import torch
 
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if batch > 1:
+            torch.cuda._sleep(200_000 * batch)  # ~0.1 ms per queued call
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     times.sort()
     return times[len(times) // 2]
 
 
-def _allview_kargs(cams, images, pos, frames, vis, k):
-    """Arguments of `allview_scores_cuda` for one input set."""
-    sx, sy = frames
-    return (images, cams.K.contiguous(), cams.R.contiguous(),
-            cams.C.contiguous(), cams.width, cams.height, pos.contiguous(),
-            sx.contiguous(), sy.contiguous(), vis.contiguous(), k)
+KERNEL_BATCH = 10  # calls per timing of a kernel alone
 
 
-def compare_kernel(label, cams, images, pos, nrm, ref, vis, k):
-    """Kernel vs plain on one input set; returns (max_abs_err, ms, plain_ms)."""
+def _kernel_args(fn, cams, images, pos, nrm, ref, k, **extra):
+    """Positional arguments of a kernel wrapper (`allview_scores_cuda`,
+    `slot_scores_cuda`), picked by the names in its signature: the cameras'
+    arrays, position, normal and reference view, `extra` (visibility or
+    slots), and precomputed frames `sx`, `sy` for a checkout whose kernels
+    still take them."""
+    import inspect
+
+    import torch
+
+    names = list(inspect.signature(fn).parameters)
+    pool = {"images": images, "K": cams.K.contiguous(),
+            "R": cams.R.contiguous(), "E": cams.E.contiguous(),
+            "C": cams.C.contiguous(), "x_axis": cams.x_axis.contiguous(),
+            "width": cams.width, "height": cams.height,
+            "position": pos.contiguous(), "normal": nrm.contiguous(),
+            "ref": ref.to(torch.int64).contiguous(), "texture_size": k,
+            **{name: t.contiguous() for name, t in extra.items()}}
+    if "sx" in names:
+        from densepoints_tpu_torch.ops.warp import patch_frames
+
+        sx, sy = patch_frames(cams, pos, nrm, ref, k)
+        pool.update(sx=sx.contiguous(), sy=sy.contiguous())
+    return tuple(pool[name] for name in names)
+
+
+def _device_kernels(fn):
+    """Names of the device kernels one call of `fn` launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = []
+    for event in prof.key_averages():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            names += [event.key] * event.count
+    return names
+
+
+def check_kernel(label, cams, images, pos, nrm, ref, vis, k):
+    """The all-views kernel vs its plain version on one input set: anchors,
+    sentinel placement and scores; returns (scores, anchor, anchor_ok,
+    max_abs_err, scored, sentinel flips) of the kernel's run."""
     import torch
 
     from densepoints_tpu_torch.ops import allview_ncc
@@ -293,6 +358,8 @@ def compare_kernel(label, cams, images, pos, nrm, ref, vis, k):
     sk, ak, okk = allview_ncc.allview_scores(*args)
     sp, ap, okp = allview_ncc.allview_scores_plain(*args)
     torch.cuda.synchronize()
+    check(sk.shape == sp.shape and sk.dtype == torch.float32,
+          f"{label}: scores {tuple(sk.shape)} {sk.dtype}")
     check(bool((ak == ap).all()), f"{label}: anchors differ")
     check(bool((okk == okp).all()), f"{label}: anchor_ok differs")
     flips = ((sk == -1) != (sp == -1)).nonzero().tolist()
@@ -308,9 +375,22 @@ def compare_kernel(label, cams, images, pos, nrm, ref, vis, k):
     err = float((sk - sp)[both].abs().max()) if bool(both.any()) else 0.0
     check(err <= SCORE_ATOL, f"{label}: max |kernel - plain| {err:.3e}")
     check(bool(torch.isfinite(sk).all()), f"{label}: non-finite scores")
-    # Times of the kernel and of the plain version on the same frames,
-    # then of the whole wrapper (frames in torch + kernel).
-    kargs = _allview_kargs(cams, images, pos, frames, vis, k)
+    return sk, ak, okk, err, int(both.sum()), len(flips)
+
+
+def compare_kernel(label, cams, images, pos, nrm, ref, vis, k):
+    """Kernel vs plain on one input set, then the times of both."""
+    from densepoints_tpu_torch.ops import allview_ncc
+    from densepoints_tpu_torch.ops.warp import patch_frames
+
+    args = (images, cams, pos, nrm, ref, vis, k)
+    sk, ak, okk, err, scored, flips = check_kernel(
+        label, cams, images, pos, nrm, ref, vis, k)
+    frames = patch_frames(cams, pos, nrm, ref, k)
+    # Times of the kernel alone, of the plain version on ready frames, and
+    # of the whole entry point `allview_scores`.
+    kargs = _kernel_args(allview_ncc.allview_scores_cuda, cams, images, pos,
+                         nrm, ref, k, vis=vis)
     runs = {
         "kernel": lambda: allview_ncc.allview_scores_cuda(*kargs),
         "plain": lambda: allview_ncc.allview_scores_plain(*args,
@@ -322,20 +402,23 @@ def compare_kernel(label, cams, images, pos, nrm, ref, vis, k):
     # Textures this run's data makes the kernel sample: one per scored slot
     # and one per valid anchor.
     textures = int((sk != -1).sum()) + int(okk.sum())
-    bound = _warp_bound(images, (*kargs[1:10], sk, ak, okk), textures, k)
+    bound = _warp_bound(images, (*kargs[1:-1], sk, ak, okk), B, textures, k)
     print(f"[allview_ncc] {label}: B={B} V={V} k={k} slots={int(vis.sum())} "
-          f"scored={int(both.sum())} max_abs_err={err:.3e} "
-          f"sentinel_flips={len(flips)} kernel_ms={ms['kernel']:.4f} "
+          f"scored={scored} max_abs_err={err:.3e} "
+          f"sentinel_flips={flips} kernel_ms={ms['kernel']:.4f} "
           f"plain_ms={ms['plain']:.4f} wrapper_ms={ms['wrapper']:.4f} "
           f"bound_ms={bound[0]:.5f} ({bound[1]})", flush=True)
     return _result(err, ms, bound)
 
 
 def _time_runs(runs, reps=20):
+    """Times of named runs; the run named "kernel" (a kernel's wrapper
+    alone) is timed back to back, the others call by call."""
     for fn in runs.values():  # warm
         fn()
         fn()
-    return {name: _time_ms(fn, reps) for name, fn in runs.items()}
+    return {name: _time_ms(fn, reps, KERNEL_BATCH if name == "kernel" else 1)
+            for name, fn in runs.items()}
 
 
 def compare_ncc_pairs(N, L, masked, device):
@@ -378,23 +461,30 @@ def compare_ncc_pairs(N, L, masked, device):
     return _result(err, ms, bound)
 
 
-def compare_slot_kernel(label, cams, images, pos, nrm, ref, view_ids, ok, k,
-                        plain_reps=20):
-    """The slot kernel vs plain on one (view_ids, ok) slot table."""
+def check_slot_kernel(label, cams, images, pos, nrm, ref, view_ids, ok, k,
+                      plain_ok=None):
+    """The slot kernel vs its plain version on one (view_ids, ok) slot
+    table; `plain_ok` replaces `ok` for the plain version (which cannot
+    index a view id outside the stack). Returns (scores, max_abs_err,
+    scored, sentinel flips)."""
     import torch
 
     from densepoints_tpu_torch.ops import warp_ncc
     from densepoints_tpu_torch.ops.warp import patch_frames
 
-    args = (images, cams, pos, nrm, ref, view_ids, ok, k)
-    sk = warp_ncc.slot_scores(*args)
-    sp = warp_ncc.slot_scores_plain(*args)
+    V = images.shape[0]
+    sk = warp_ncc.slot_scores(images, cams, pos, nrm, ref, view_ids, ok, k)
+    sp = warp_ncc.slot_scores_plain(
+        images, cams, pos, nrm, ref, view_ids.clamp(0, V - 1),
+        ok if plain_ok is None else plain_ok, k)
     torch.cuda.synchronize()
+    check(sk.shape == sp.shape and sk.dtype == torch.float32,
+          f"{label}: scores {tuple(sk.shape)} {sk.dtype}")
     flips = ((sk == -1) != (sp == -1)).nonzero().tolist()
     frames = patch_frames(cams, pos, nrm, ref, k)
     for b, m in flips:
         # A flip of slot 0 flips its whole row: the border is slot 0's.
-        views = {int(view_ids[b, m]), int(view_ids[b, 0])}
+        views = {min(max(int(view_ids[b, s]), 0), V - 1) for s in (m, 0)}
         margin = min(_corner_margin(cams, pos, frames, b, v) for v in views)
         print(f"  [{label}] sentinel differs at (patch {b}, slot {m}): "
               f"kernel {float(sk[b, m]):.6f} plain {float(sp[b, m]):.6f}, "
@@ -406,11 +496,21 @@ def compare_slot_kernel(label, cams, images, pos, nrm, ref, view_ids, ok, k,
     check(err <= SCORE_ATOL, f"{label}: max |kernel - plain| {err:.3e}")
     check(bool(torch.isfinite(sk).all()), f"{label}: non-finite scores")
     check(bool((sk[~ok] == -1).all()), f"{label}: a slot without ok scored")
-    sx, sy = frames
-    kargs = (images, cams.K.contiguous(), cams.R.contiguous(),
-             cams.C.contiguous(), cams.width, cams.height, pos.contiguous(),
-             sx.contiguous(), sy.contiguous(), view_ids.contiguous(),
-             ok.contiguous(), k)
+    return sk, err, int(both.sum()), len(flips)
+
+
+def compare_slot_kernel(label, cams, images, pos, nrm, ref, view_ids, ok, k,
+                        plain_reps=20):
+    """The slot kernel vs plain on one slot table, then the times of both."""
+    from densepoints_tpu_torch.ops import warp_ncc
+    from densepoints_tpu_torch.ops.warp import patch_frames
+
+    args = (images, cams, pos, nrm, ref, view_ids, ok, k)
+    sk, err, scored, flips = check_slot_kernel(
+        label, cams, images, pos, nrm, ref, view_ids, ok, k)
+    frames = patch_frames(cams, pos, nrm, ref, k)
+    kargs = _kernel_args(warp_ncc.slot_scores_cuda, cams, images, pos, nrm,
+                         ref, k, view_ids=view_ids, ok=ok)
     ms = {
         **_time_runs({
             "kernel": lambda: warp_ncc.slot_scores_cuda(*kargs),
@@ -422,10 +522,10 @@ def compare_slot_kernel(label, cams, images, pos, nrm, ref, view_ids, ok, k,
     }
     B, M = view_ids.shape
     textures = int((sk != -1).sum())  # slot 0 included
-    bound = _warp_bound(images, (*kargs[1:11], sk), textures, k)
+    bound = _warp_bound(images, (*kargs[1:-1], sk), B, textures, k)
     print(f"[slot_ncc] {label}: B={B} M={M} k={k} slots={int(ok.sum())} "
-          f"scored={int(both.sum())} max_abs_err={err:.3e} "
-          f"sentinel_flips={len(flips)} kernel_ms={ms['kernel']:.4f} "
+          f"scored={scored} max_abs_err={err:.3e} "
+          f"sentinel_flips={flips} kernel_ms={ms['kernel']:.4f} "
           f"plain_ms={ms['plain']:.4f} wrapper_ms={ms['wrapper']:.4f} "
           f"bound_ms={bound[0]:.5f} ({bound[1]})", flush=True)
     return _result(err, ms, bound)
@@ -556,6 +656,115 @@ def compare_window_textures(label, inp, plain_reps=20):
     return _result(max(errs.values()), ms, bound)
 
 
+def small_rig(device, V, B, seed):
+    """V views of 120 x 160 on an arc around a noise-textured plane, B
+    patches with mixed visibility, one row with no visible view (when
+    B > 2) and rows off every frustum (when B > 8)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    H, W = 120, 160
+    Cs = []
+    for i in range(V):
+        ang = (i - (V - 1) / 2) * (0.9 / max(V, 8))
+        Cs.append(np.array([6.0 * np.sin(ang), 0.2 * np.sin(2 * i),
+                            -6.0 * np.cos(ang)]))
+    cams = _cameras(Cs, 125.0, W, H, device)
+    images = rng.uniform(0, 255, (V, H, W)).astype(np.float32)
+    xy = rng.uniform(-1.0, 1.0, (B, 2))
+    pos = np.concatenate([xy, np.zeros((B, 1))], 1).astype(np.float32)
+    nrm = np.tile([0.0, 0.0, 1.0], (B, 1)).astype(np.float32)
+    ref = rng.integers(0, V, B)
+    vis = rng.uniform(size=(B, V)) > 0.3
+    if V > 1:
+        vis[np.arange(B), ref] = False
+    if B > 2:
+        vis[2] = False
+    if B > 8:
+        pos[4:8] = [50.0, 50.0, 0.0]
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return cams, t(images), t(pos), t(nrm), t(ref), t(vis)
+
+
+def phase_awkward_shapes(device, results):
+    """K1 and K2 against their plain versions at the shapes that stress the
+    kernels' control flow: one view, more views than a block has threads,
+    textures of 1, 25, 49 and 441 texels (fewer texels than lanes; two per
+    lane; the strided variant), batches of 0 and 1, a slot table of one slot, and view ids
+    outside the stack."""
+    import torch
+
+    from densepoints_tpu_torch.ops import allview_ncc, warp_ncc
+    from densepoints_tpu_torch.ops.warp import compact_visible
+
+    worst = {"allview_ncc": 0.0, "slot_ncc": 0.0}
+    lines = []
+    for V, B, k in ((1, 33, 11), (130, 40, 5), (130, 40, 16), (8, 64, 1),
+                    (8, 64, 5), (8, 64, 7), (8, 64, 21), (8, 1, 11),
+                    (8, 0, 11), (49, 64, 11)):
+        rig = small_rig(device, V, B, seed=100 + V + B + k)
+        label = f"V={V} B={B} k={k}"
+        launches = allview_ncc.KERNEL_LAUNCHES
+        sk, _, _, err, scored, flips = check_kernel(f"awkward {label}",
+                                                    *rig, k)
+        check(allview_ncc.KERNEL_LAUNCHES == launches + (1 if B else 0),
+              f"awkward {label}: the all-views kernel did not launch once")
+        check(tuple(sk.shape) == (B, V), f"awkward {label}: {sk.shape}")
+        worst["allview_ncc"] = max(worst["allview_ncc"], err)
+        lines.append(f"{label}: scored={scored} err={err:.3e} flips={flips}")
+        # The slot kernel on the same rig: the default compaction, and for
+        # V = 8 a single slot and a table with ids outside [0, V).
+        cams, images, pos, nrm, ref, vis = rig
+        tables = [("M=16", *compact_visible(vis, 16), None)]
+        if V == 8:
+            tables.append(("M=1", *compact_visible(vis, 1), None))
+            ids, ok = compact_visible(vis, 8)
+            ids = ids.clone()
+            ids[:, 3] = -1
+            ids[:, 5] = V + 3
+            dead = ok.clone()
+            dead[:, 3] = False
+            dead[:, 5] = False
+            tables.append(("ids outside [0, V)", ids, ok, dead))
+        for name, ids, ok, plain_ok in tables:
+            sk, err, scored, flips = check_slot_kernel(
+                f"awkward {label} {name}", cams, images, pos, nrm, ref, ids,
+                ok, k, plain_ok=plain_ok)
+            if plain_ok is not None:
+                check(bool((sk[ok & ~plain_ok] == -1).all()),
+                      f"awkward {label}: a slot with a view id outside the "
+                      "stack scored")
+            worst["slot_ncc"] = max(worst["slot_ncc"], err)
+            lines.append(f"{label} slots {name}: scored={scored} "
+                         f"err={err:.3e} flips={flips}")
+    for line in lines:
+        print(f"[awkward] {line}", flush=True)
+    for kernel, err in worst.items():
+        results[kernel]["awkward"] = {"max_abs_err": err}
+    torch.cuda.empty_cache()
+
+
+def check_no_torch_op_before_launch(refine, ids, ok):
+    """On CUDA tensors `allview_scores` and `slot_scores` run exactly one
+    device kernel, their own: the frames are computed inside it."""
+    from densepoints_tpu_torch.ops import allview_ncc, warp_ncc
+
+    cams, images, pos, nrm, ref, vis = refine
+    for name, fn in (
+        ("allview_ncc", lambda: allview_ncc.allview_scores(
+            images, cams, pos, nrm, ref, vis, 11)),
+        ("slot_ncc", lambda: warp_ncc.slot_scores(
+            images, cams, pos, nrm, ref, ids, ok, 11)),
+    ):
+        fn()
+        kernels = _device_kernels(fn)
+        print(f"[{name}] device kernels of one wrapper call: {kernels}",
+              flush=True)
+        check(len(kernels) == 1 and f"{name}_kernel" in kernels[0],
+              f"{name}: the wrapper ran {kernels} on the device")
+
+
 def _slot_tables(label, vis, max_views):
     """The anchor-pinned chunks of `vis`, made on the card; checks that the
     stable sort behind them and behind `compact_visible` gives the same ids
@@ -610,7 +819,9 @@ def phase_kernels(device):
             f"refine k={k}", *refine, k)
         results["slot_ncc"][f"refine_k{k}"] = compare_slot_kernel(
             f"refine k={k}", *refine[:5], ids, ok, k)
+    check_no_torch_op_before_launch(refine, ids, ok)
     del refine
+    phase_awkward_shapes(device, results)
     dtu = dtu_inputs(device)
     results["allview_ncc"]["dtu_k16"] = compare_kernel("dtu k=16", *dtu, 16)
     chunks = _slot_tables("dtu", dtu[5], 16)
@@ -1001,11 +1212,12 @@ KERNELS = (
 
 def time_allview(device):
     """The `--time-allview` mode: one JSON line of kernel-only times of the
-    all-views kernel and the slot kernel."""
+    all-views kernel and the slot kernel, and of the whole entry point
+    `allview_scores` at the refine k = 11 shape."""
     import torch
 
     from densepoints_tpu_torch.ops import allview_ncc, warp_ncc
-    from densepoints_tpu_torch.ops.warp import compact_visible, patch_frames
+    from densepoints_tpu_torch.ops.warp import compact_visible
     from densepoints_tpu_torch.pmvs.optimize import _anchor_chunks
 
     out = {"root": str(ROOT), "card": torch.cuda.get_device_name(0)}
@@ -1013,36 +1225,130 @@ def time_allview(device):
     def medians(label, fn):
         for _ in range(5):
             fn()
-        out[label] = [round(_time_ms(fn, 50), 4) for _ in range(3)]
+        out[label] = [round(_time_ms(fn, 50, KERNEL_BATCH), 4)
+                      for _ in range(3)]
 
-    def run(label, slots, cams, images, pos, nrm, ref, vis, k):
-        frames = patch_frames(cams, pos, nrm, ref, k)
-        kargs = _allview_kargs(cams, images, pos, frames, vis, k)
+    def host_medians(label, fn):
+        """Host milliseconds until the call returns (its launches queued)."""
+        out[label] = []
+        for _ in range(3):
+            times = []
+            for _ in range(50):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                times.append(1e3 * (time.perf_counter() - t0))
+            out[label].append(round(sorted(times)[25], 4))
+
+    def run(label, slots, wrapper, cams, images, pos, nrm, ref, vis, k):
+        kargs = _kernel_args(allview_ncc.allview_scores_cuda, cams, images,
+                             pos, nrm, ref, k, vis=vis)
         medians(f"{label}_ms",
                 lambda: allview_ncc.allview_scores_cuda(*kargs))
         if slots is not None:
             ids, ok = slots(vis)
-            sargs = (*kargs[:9], ids.to(torch.int32).contiguous(),
-                     ok.contiguous(), k)
+            sargs = _kernel_args(warp_ncc.slot_scores_cuda, cams, images, pos,
+                                 nrm, ref, k, view_ids=ids.to(torch.int32),
+                                 ok=ok)
             medians(f"slot_{label}_ms",
                     lambda: warp_ncc.slot_scores_cuda(*sargs))
+        if wrapper:
+            args = (images, cams, pos, nrm, ref, vis, k)
+            # One call between the events, as a caller makes it.
+            fn = lambda: allview_ncc.allview_scores(*args)  # noqa: E731
+            out[f"wrapper_{label}_ms"] = [round(_time_ms(fn, 50), 4)
+                                          for _ in range(3)]
+            host_medians(f"wrapper_host_{label}_ms",
+                         lambda: allview_ncc.allview_scores(*args))
 
     refine = refine_inputs(device)
-    run("refine_k11", lambda vis: compact_visible(vis, 8), *refine, 11)
-    run("refine_k16", None, *refine, 16)
+    run("refine_k11", lambda vis: compact_visible(vis, 8), True, *refine, 11)
+    run("refine_k16", None, False, *refine, 16)
     del refine
-    run("dtu_k16", lambda vis: _anchor_chunks(vis, 16)[0],
+    run("dtu_k16", lambda vis: _anchor_chunks(vis, 16)[0], False,
         *dtu_inputs(device), 16)
+    print(json.dumps(out), flush=True)
+
+
+def profile_main(device):
+    """The `--profile-main` mode: the CLI on the sphere scene once to warm
+    up, then once under `torch.profiler`; one JSON line of the device ops
+    of that run (count and milliseconds, the scoring kernel and the batched
+    matmuls apart), its launches, stage seconds, patches and radial error."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _cli_on_sphere(device, SPHERE_SETTINGS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pts, metrics, wall, launches, plain = _cli_on_sphere(
+            device, SPHERE_SETTINGS)
+        torch.cuda.synchronize()
+    groups = {"all": [0, 0.0], "allview_ncc_kernel": [0, 0.0],
+              "bmm_or_gemm": [0, 0.0]}
+    for event in prof.key_averages():
+        if event.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        keys = ["all"]
+        if "allview_ncc_kernel" in event.key:
+            keys.append("allview_ncc_kernel")
+        elif "gemm" in event.key.lower() or "bmm" in event.key.lower():
+            keys.append("bmm_or_gemm")
+        for key in keys:
+            groups[key][0] += event.count
+            groups[key][1] += event.device_time_total / 1e3
+    print(json.dumps({
+        "root": str(ROOT), "card": torch.cuda.get_device_name(0),
+        "device_ops": {k: {"count": c, "ms": round(ms, 3)}
+                       for k, (c, ms) in groups.items()},
+        "allview_ncc_launches": launches["allview_ncc"],
+        "plain_calls": sum(plain.values()),
+        "cli_wall_s": round(wall, 3),
+        "stage_s": {k: round(v, 3) for k, v in metrics.times.items()},
+        "patches": len(pts), "median_radial_error": _radial_error(pts),
+    }), flush=True)
+
+
+def kernel_resources(device):
+    """The `--kernel-resources` mode: registers, spills and shared memory of
+    every instance of the two warp + NCC kernels, as `nvcc -Xptxas -v`
+    reports them for sm_90a, one JSON line."""
+    import re
+
+    from densepoints_tpu_torch.ops import _build
+
+    out = {"root": str(ROOT)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        for name in ("allview_ncc", "slot_ncc"):
+            proc = subprocess.run(
+                [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-std=c++17", "-O3", "-Xptxas", "-v", "-c", "-o",
+                 str(Path(tmp) / f"{name}.o"),
+                 str(ROOT / "densepoints_tpu_torch" / "csrc" / f"{name}.cu")],
+                capture_output=True, text=True)
+            check(proc.returncode == 0, f"nvcc failed: {proc.stderr}")
+            found = re.findall(
+                rf"{name}_kernelILi(\d)E.*?(\d+) bytes stack frame, (\d+) "
+                r"bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) "
+                r"registers", proc.stderr, flags=re.S)
+            check(len(found) == 5, f"{name}: {len(found)} kernels in ptxas -v")
+            out[name] = {
+                f"T={t}": {"registers": int(regs), "stack_bytes": int(stack),
+                           "spill_store_bytes": int(st),
+                           "spill_load_bytes": int(ld)}
+                for t, stack, st, ld, regs in sorted(found)}
     print(json.dumps(out), flush=True)
 
 
 def main() -> int:
     sys.path.insert(0, str(ROOT))
-    if sys.argv[1:] == ["--time-allview"]:
+    modes = {"--time-allview": time_allview, "--profile-main": profile_main,
+             "--kernel-resources": kernel_resources}
+    if len(sys.argv) == 2 and sys.argv[1] in modes:
         try:
             phase_device()
             phase_build()
-            time_allview("cuda")
+            modes[sys.argv[1]]("cuda")
         except SmokeFailure as exc:
             print(f"FAIL: {exc}", flush=True)
             return 1

@@ -17,7 +17,10 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["build_library", "check_tensor", "launch", "VOID_P", "INT64", "INT"]
+__all__ = [
+    "build_library", "check_tensor", "check_warp_scene", "launch",
+    "VOID_P", "INT64", "INT",
+]
 
 VOID_P, INT64, INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
@@ -96,6 +99,60 @@ def check_tensor(name, t, device, dtype, shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+# Mirrors of csrc/warp_ncc_common.cuh: patches (warps) of a block, words of
+# shared memory per entry, the largest texture side whose texels a warp holds
+# in registers, and the static limit of a block's shared memory.
+_WARP_NCC_WARPS = 4
+_WARP_NCC_ENTRY_WORDS = 12
+_WARP_NCC_REGISTER_K = 16
+_SMEM_LIMIT_BYTES = 48 * 1024
+
+
+def check_warp_scene(images, cameras_K, position, normal, ref, k, entries):
+    """Raise `ValueError` unless the warp + NCC kernels take these shapes:
+    a (V, H, W) stack with H, W >= 2 and H * W below 2^31 (offsets inside a
+    view's page are 32-bit), `position`, `normal` (B, 3) and `ref` (B,) of
+    one batch size, and a texture side `k` and `entries` view entries per
+    patch that fit a block's shared memory. Shapes only: no
+    tensor is read, so it runs before any launch and on any device."""
+    if images.ndim != 3:
+        raise ValueError(
+            f"images has shape {tuple(images.shape)}, expected (V, H, W)"
+        )
+    V, H, W = images.shape
+    if V < 1 or H < 2 or W < 2:
+        raise ValueError(f"image stack {tuple(images.shape)} below 1 x 2 x 2")
+    if H * W >= 2**31:
+        raise ValueError(
+            f"a view of {H} x {W} pixels: the kernel's offsets inside a view "
+            "are 32-bit, H * W must stay below 2^31"
+        )
+    if tuple(cameras_K.shape) != (V, 3, 3):
+        raise ValueError(
+            f"K has shape {tuple(cameras_K.shape)}, expected {(V, 3, 3)}"
+        )
+    B = position.shape[0]
+    for name, t, shape in (("position", position, (B, 3)),
+                           ("normal", normal, (B, 3)), ("ref", ref, (B,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name} has shape {tuple(t.shape)}, expected {shape}: "
+                "position, normal and ref are one batch"
+            )
+    words = _WARP_NCC_ENTRY_WORDS * entries + 2 * -(-entries // 32)
+    if k > _WARP_NCC_REGISTER_K:
+        words += k * k  # the anchor texture of the strided variant
+    if k < 1 or 4 * _WARP_NCC_WARPS * words > _SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"texture_size {k} with {entries} view entries outside the "
+            f"kernel's range: k >= 1 and, for each of the "
+            f"{_WARP_NCC_WARPS} patches of a block, 12 words per entry (and "
+            f"k * k above k = {_WARP_NCC_REGISTER_K}) within "
+            f"{_SMEM_LIMIT_BYTES} bytes of shared memory"
+        )
+    return V, H, W, B
 
 
 def launch(name: str, argtypes, device, *args):

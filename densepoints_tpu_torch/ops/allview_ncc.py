@@ -10,8 +10,11 @@ own column, invisible views, rows with no visible view).
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
 `csrc/allview_ncc.cu` (built with nvcc for sm_90a at first use and bound
-with ctypes by `ops/_build.py`) or raises. On a CPU tensor it runs
-`allview_scores_plain`, the plain torch version of the same contract.
+with ctypes by `ops/_build.py`) or raises; the kernel takes position,
+normal and reference view and computes the patch frames itself, so no torch
+op runs before the launch. On a CPU tensor it runs `allview_scores_plain`,
+the plain torch version of the same contract (frames by
+`ops.warp.patch_frames`).
 `KERNEL_LAUNCHES` and `PLAIN_CALLS` count which path ran.
 """
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from densepoints_tpu_torch.core.cameras import Cameras
 from densepoints_tpu_torch.core.scores import NCC_MIN_DENOM
 from densepoints_tpu_torch.ops import _build
-from densepoints_tpu_torch.ops.warp import patch_frames, patch_textures
+from densepoints_tpu_torch.ops.warp import patch_textures
 
 __all__ = [
     "allview_scores",
@@ -38,8 +41,8 @@ PLAIN_CALLS = 0  # calls answered by the plain torch version (CPU tensors)
 _VP, _I64 = _build.VOID_P, _build.INT64
 _ARGTYPES = (
     _VP, _I64, _I64, _I64,  # images, V, H, W
-    _VP, _VP, _VP, _VP, _VP,  # K, R, C, width, height
-    _VP, _VP, _VP, _VP,  # position, sx, sy, vis
+    _VP, _VP, _VP, _VP, _VP, _VP,  # K, E, C, x_axis, width, height
+    _VP, _VP, _VP, _VP,  # position, normal, ref, vis
     _I64, _build.INT,  # B, k
     _VP, _VP, _VP, _VP,  # scores, anchor, anchor_ok, stream
 )
@@ -51,42 +54,44 @@ _check = _build.check_tensor
 def allview_scores_cuda(
     images: torch.Tensor,
     K: torch.Tensor,
-    R: torch.Tensor,
+    E: torch.Tensor,
     C: torch.Tensor,
+    x_axis: torch.Tensor,
     width: torch.Tensor,
     height: torch.Tensor,
     position: torch.Tensor,
-    sx: torch.Tensor,
-    sy: torch.Tensor,
+    normal: torch.Tensor,
+    ref: torch.Tensor,
     vis: torch.Tensor,
     texture_size: int,
 ):
-    """Launch the CUDA kernel on the current stream.
+    """Launch the CUDA kernel on the current stream; nothing else runs on
+    the device (the kernel computes the patch frames itself).
 
-    images (V, H, W) f32; K, R (V, 3, 3) f32; C (V, 3) f32; width, height
-    (V,) int32; position, sx, sy (B, 3) f32; vis (B, V) bool; all
-    contiguous on one CUDA device. Returns (scores (B, V) f32, anchor (B,)
-    int64, anchor_ok (B,) bool).
+    images (V, H, W) f32; K (V, 3, 3), E (V, 3, 4), C, x_axis (V, 3) f32;
+    width, height (V,) int32; position, normal (B, 3) f32; ref (B,) int64
+    (the kernel clamps it into [0, V)); vis (B, V) bool; all contiguous on
+    one CUDA device. Returns (scores (B, V) f32, anchor (B,) int64,
+    anchor_ok (B,) bool).
     """
     global KERNEL_LAUNCHES
+    k = int(texture_size)
+    V, H, W, B = _build.check_warp_scene(
+        images, K, position, normal, ref, k, entries=images.shape[0]
+    )
     dev = images.device
     if dev.type != "cuda":
         raise ValueError(f"allview_scores_cuda needs CUDA tensors, got {dev}")
-    V, H, W = images.shape
-    B = position.shape[0]
-    k = int(texture_size)
-    if k < 1 or 2 * k * k * 4 > 48 * 1024:
-        raise ValueError(f"texture_size {k} outside the kernel's 1..78")
-    if H < 2 or W < 2:
-        raise ValueError(f"image stack {tuple(images.shape)} below 2 x 2")
     _check("images", images, dev, torch.float32, (V, H, W))
     _check("K", K, dev, torch.float32, (V, 3, 3))
-    _check("R", R, dev, torch.float32, (V, 3, 3))
+    _check("E", E, dev, torch.float32, (V, 3, 4))
     _check("C", C, dev, torch.float32, (V, 3))
+    _check("x_axis", x_axis, dev, torch.float32, (V, 3))
     _check("width", width, dev, torch.int32, (V,))
     _check("height", height, dev, torch.int32, (V,))
-    for name, t in (("position", position), ("sx", sx), ("sy", sy)):
-        _check(name, t, dev, torch.float32, (B, 3))
+    _check("position", position, dev, torch.float32, (B, 3))
+    _check("normal", normal, dev, torch.float32, (B, 3))
+    _check("ref", ref, dev, torch.int64, (B,))
     _check("vis", vis, dev, torch.bool, (B, V))
     scores = torch.empty((B, V), dtype=torch.float32, device=dev)
     anchor = torch.empty((B,), dtype=torch.int64, device=dev)
@@ -97,9 +102,10 @@ def allview_scores_cuda(
     _build.launch(
         "allview_ncc_launch", _ARGTYPES, dev,
         images.data_ptr(), V, H, W,
-        K.data_ptr(), R.data_ptr(), C.data_ptr(),
+        K.data_ptr(), E.data_ptr(), C.data_ptr(), x_axis.data_ptr(),
         width.data_ptr(), height.data_ptr(),
-        position.data_ptr(), sx.data_ptr(), sy.data_ptr(), vis.data_ptr(),
+        position.data_ptr(), normal.data_ptr(), ref.data_ptr(),
+        vis.data_ptr(),
         B, k,
         scores.data_ptr(), anchor.data_ptr(), anchor_ok.data_ptr(),
     )
@@ -154,17 +160,15 @@ def allview_scores(
     """(scores (B, V), anchor (B,), anchor_ok (B,)): the CUDA kernel for
     CUDA tensors, the plain torch version for CPU tensors."""
     global PLAIN_CALLS
-    frames = patch_frames(cameras, position, normal, ref, texture_size)
     if images.device.type == "cpu":
         PLAIN_CALLS += 1
         return allview_scores_plain(
-            images, cameras, position, normal, ref, vis, texture_size,
-            frames=frames,
+            images, cameras, position, normal, ref, vis, texture_size
         )
-    sx, sy = frames
     return allview_scores_cuda(
-        images, cameras.K.contiguous(), cameras.R.contiguous(),
-        cameras.C.contiguous(), cameras.width, cameras.height,
-        position.contiguous(), sx.contiguous(), sy.contiguous(),
-        vis.contiguous(), texture_size,
+        images, cameras.K.contiguous(), cameras.E.contiguous(),
+        cameras.C.contiguous(), cameras.x_axis.contiguous(),
+        cameras.width, cameras.height,
+        position.contiguous(), normal.contiguous(),
+        ref.to(torch.int64).contiguous(), vis.contiguous(), texture_size,
     )

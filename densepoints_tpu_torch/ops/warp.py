@@ -23,6 +23,8 @@ from densepoints_tpu_torch.core.cameras import Cameras
 __all__ = [
     "bilinear_sample",
     "patch_frames",
+    "texel_homography",
+    "homography_pixels",
     "patch_textures",
     "compact_visible",
     "patch_textures_indexed",
@@ -69,6 +71,62 @@ def patch_frames(
     dx = torch.linalg.norm(_proj(position + x_axis) - _proj(position), dim=-1)
     scale = (texture_size // 2) / torch.clamp_min(dx, 1e-12)
     return scale[:, None] * x_axis, scale[:, None] * y_axis
+
+
+def texel_homography(
+    cameras: Cameras,
+    position: torch.Tensor,
+    sx: torch.Tensor,
+    sy: torch.Tensor,
+    texture_size: int,
+):
+    """The texel homography of every (view, patch), as the CUDA kernels
+    form it once per (patch, view). A plain version for tests; no path
+    calls it.
+
+    The world point of texel (r, c) is affine in (c, r), so its homogeneous
+    pixel is A + c * B + r * Cc with A = K (R ((p - sx - sy) - C)),
+    B = K (R (sx * 2 / k)), Cc = K (R (sy * 2 / k)), the decomposed order
+    of `Cameras.project`. The columns are formed in f64 and kept relative
+    to an origin pixel near the patch (the f32 pixel of its centre), so
+    that  pix = origin + (a + c * b + r * cc) / (A2 + c * B2 + r * C2)
+    has a quotient of a few pixels and carries one f32 rounding at its own
+    magnitude. Returns f32 tensors (origin (V, B, 2), numerator (V, B, 3, 2)
+    holding a, b, cc for x and y, denominator (V, B, 3) holding A2, B2, C2).
+    """
+    k = texture_size
+    K, R, C = cameras.K.double(), cameras.R.double(), cameras.C.double()
+    p, ax, ay = position.double(), sx.double(), sy.double()
+
+    def _kr(vec):  # (V, B, 3) world vectors -> (V, B, 3) homogeneous pixels
+        return torch.einsum("vij,vbj->vbi", K, torch.einsum(
+            "vij,vbj->vbi", R, vec))
+
+    V = cameras.num_views
+    step = 2.0 / k
+    cols = torch.stack([
+        _kr(((p - ax) - ay)[None] - C[:, None, :]),
+        _kr((ax * step).expand(V, -1, -1)),
+        _kr((ay * step).expand(V, -1, -1)),
+    ], dim=2)  # (V, B, 3 columns, 3 coordinates)
+    centre = cols.float()
+    centre = centre[:, :, 0] + (0.5 * k) * (centre[:, :, 1] + centre[:, :, 2])
+    origin = centre[..., :2] / centre[..., 2:3]  # (V, B, 2), f32
+    numerator = cols[..., :2] - origin.double()[:, :, None, :] * cols[..., 2:3]
+    return origin, numerator.float(), cols[..., 2].float()
+
+
+def homography_pixels(origin, numerator, denominator, texture_size: int):
+    """Pixels (V, B, k, k, 2), f32, of the k x k texel grid from the parts
+    `texel_homography` returns: one reciprocal per texel."""
+    idx = torch.arange(texture_size, dtype=origin.dtype, device=origin.device)
+    col = idx[None, None, None, :]
+    row = idx[None, None, :, None]
+    a, b, c = (numerator[:, :, i, None, None, :] for i in range(3))
+    num = (a + col[..., None] * b) + row[..., None] * c  # (V, B, k, k, 2)
+    a2, b2, c2 = (denominator[:, :, i, None, None] for i in range(3))
+    inv = 1.0 / ((a2 + col * b2) + row * c2)  # (V, B, k, k)
+    return origin[:, :, None, None, :] + num * inv[..., None]
 
 
 def patch_textures(

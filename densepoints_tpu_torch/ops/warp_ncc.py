@@ -10,7 +10,9 @@ statistics and clamp are those of `ops.allview_ncc`: this is a second
 derivation of the same scores, by slots instead of a visibility row.
 
 On CUDA tensors `slot_scores` launches the hand-written kernel in
-`csrc/slot_ncc.cu` or raises. On CPU tensors it runs `slot_scores_plain`
+`csrc/slot_ncc.cu` or raises; the kernel computes the patch frames itself,
+so no torch op runs before the launch (slot tables are handed over as
+int32). On CPU tensors it runs `slot_scores_plain`
 (gathered textures through `patch_textures_indexed`, then row-wise NCC).
 `KERNEL_LAUNCHES` and `PLAIN_CALLS` count which path ran.
 """
@@ -23,7 +25,6 @@ from densepoints_tpu_torch.ops import _build
 from densepoints_tpu_torch.ops.ncc import ncc_pairs_plain
 from densepoints_tpu_torch.ops.warp import (
     compact_visible,
-    patch_frames,
     patch_textures_indexed,
 )
 
@@ -43,8 +44,8 @@ PLAIN_CALLS = 0  # calls answered by the plain torch version (CPU tensors)
 _VP, _I64 = _build.VOID_P, _build.INT64
 _ARGTYPES = (
     _VP, _I64, _I64, _I64,  # images, V, H, W
-    _VP, _VP, _VP, _VP, _VP,  # K, R, C, width, height
-    _VP, _VP, _VP, _VP, _VP,  # position, sx, sy, view_ids, ok
+    _VP, _VP, _VP, _VP, _VP, _VP,  # K, E, C, x_axis, width, height
+    _VP, _VP, _VP, _VP, _VP,  # position, normal, ref, view_ids, ok
     _I64, _I64, _build.INT,  # B, M, k
     _VP, _VP,  # scores, stream
 )
@@ -53,49 +54,51 @@ _ARGTYPES = (
 def slot_scores_cuda(
     images: torch.Tensor,
     K: torch.Tensor,
-    R: torch.Tensor,
+    E: torch.Tensor,
     C: torch.Tensor,
+    x_axis: torch.Tensor,
     width: torch.Tensor,
     height: torch.Tensor,
     position: torch.Tensor,
-    sx: torch.Tensor,
-    sy: torch.Tensor,
+    normal: torch.Tensor,
+    ref: torch.Tensor,
     view_ids: torch.Tensor,
     ok: torch.Tensor,
     texture_size: int,
 ):
-    """Launch the CUDA kernel on the current stream.
+    """Launch the CUDA kernel on the current stream; nothing else runs on
+    the device (the kernel computes the patch frames itself).
 
-    images (V, H, W) f32; K, R (V, 3, 3) f32; C (V, 3) f32; width, height
-    (V,) int32; position, sx, sy (B, 3) f32; view_ids (B, M) int32 with
-    values in 0..V-1; ok (B, M) bool; all contiguous on one CUDA device.
-    Returns scores (B, M) f32.
+    images (V, H, W) f32; K (V, 3, 3), E (V, 3, 4), C, x_axis (V, 3) f32;
+    width, height (V,) int32; position, normal (B, 3) f32; ref (B,) int64
+    (the kernel clamps it into [0, V)); view_ids (B, M) int32 (a slot whose
+    id lies outside 0..V-1 counts as not ok); ok (B, M) bool; all contiguous
+    on one CUDA device. Returns scores (B, M) f32.
     """
     global KERNEL_LAUNCHES
-    dev = images.device
-    if dev.type != "cuda":
-        raise ValueError(f"slot_scores_cuda needs CUDA tensors, got {dev}")
-    V, H, W = images.shape
-    B = position.shape[0]
     k = int(texture_size)
-    if k < 1 or 2 * k * k * 4 > 48 * 1024:
-        raise ValueError(f"texture_size {k} outside the kernel's 1..78")
-    if H < 2 or W < 2:
-        raise ValueError(f"image stack {tuple(images.shape)} below 2 x 2")
     if view_ids.ndim != 2 or view_ids.shape[1] < 1:
         raise ValueError(
             f"view_ids has shape {tuple(view_ids.shape)}, expected (B, M >= 1)"
         )
     M = view_ids.shape[1]
+    V, H, W, B = _build.check_warp_scene(
+        images, K, position, normal, ref, k, entries=M
+    )
+    dev = images.device
+    if dev.type != "cuda":
+        raise ValueError(f"slot_scores_cuda needs CUDA tensors, got {dev}")
     check = _build.check_tensor
     check("images", images, dev, torch.float32, (V, H, W))
     check("K", K, dev, torch.float32, (V, 3, 3))
-    check("R", R, dev, torch.float32, (V, 3, 3))
+    check("E", E, dev, torch.float32, (V, 3, 4))
     check("C", C, dev, torch.float32, (V, 3))
+    check("x_axis", x_axis, dev, torch.float32, (V, 3))
     check("width", width, dev, torch.int32, (V,))
     check("height", height, dev, torch.int32, (V,))
-    for name, t in (("position", position), ("sx", sx), ("sy", sy)):
-        check(name, t, dev, torch.float32, (B, 3))
+    check("position", position, dev, torch.float32, (B, 3))
+    check("normal", normal, dev, torch.float32, (B, 3))
+    check("ref", ref, dev, torch.int64, (B,))
     check("view_ids", view_ids, dev, torch.int32, (B, M))
     check("ok", ok, dev, torch.bool, (B, M))
     scores = torch.empty((B, M), dtype=torch.float32, device=dev)
@@ -105,9 +108,9 @@ def slot_scores_cuda(
     _build.launch(
         "slot_ncc_launch", _ARGTYPES, dev,
         images.data_ptr(), V, H, W,
-        K.data_ptr(), R.data_ptr(), C.data_ptr(),
+        K.data_ptr(), E.data_ptr(), C.data_ptr(), x_axis.data_ptr(),
         width.data_ptr(), height.data_ptr(),
-        position.data_ptr(), sx.data_ptr(), sy.data_ptr(),
+        position.data_ptr(), normal.data_ptr(), ref.data_ptr(),
         view_ids.data_ptr(), ok.data_ptr(),
         B, M, k, scores.data_ptr(),
     )
@@ -136,10 +139,11 @@ def gather_scores(
         frames=frames,
     )
     B, M = valid.shape
-    flat = tex.reshape(B, M, -1)
+    n = texture_size * texture_size  # spelt out: B may be 0
+    flat = tex.reshape(B, M, n)
     aflat = flat[:, :1].expand_as(flat)
     scores = ncc(
-        aflat.reshape(B * M, -1), flat.reshape(B * M, -1)
+        aflat.reshape(B * M, n), flat.reshape(B * M, n)
     ).reshape(B, M)
     return torch.where(valid & valid[:, :1], scores, -1.0)
 
@@ -176,18 +180,18 @@ def slot_scores(
     """scores (B, M): the CUDA kernel for CUDA tensors, the plain torch
     version for CPU tensors."""
     global PLAIN_CALLS
-    frames = patch_frames(cameras, position, normal, ref, texture_size)
     if images.device.type == "cpu":
         PLAIN_CALLS += 1
         return slot_scores_plain(
             images, cameras, position, normal, ref, view_ids, ok,
-            texture_size, frames=frames,
+            texture_size,
         )
-    sx, sy = frames
     return slot_scores_cuda(
-        images, cameras.K.contiguous(), cameras.R.contiguous(),
-        cameras.C.contiguous(), cameras.width, cameras.height,
-        position.contiguous(), sx.contiguous(), sy.contiguous(),
+        images, cameras.K.contiguous(), cameras.E.contiguous(),
+        cameras.C.contiguous(), cameras.x_axis.contiguous(),
+        cameras.width, cameras.height,
+        position.contiguous(), normal.contiguous(),
+        ref.to(torch.int64).contiguous(),
         view_ids.to(torch.int32).contiguous(), ok.contiguous(), texture_size,
     )
 

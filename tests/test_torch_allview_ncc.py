@@ -26,7 +26,11 @@ from densepoints_tpu_torch.ops.warp import (
     patch_textures,
 )
 from tests.synthetic import TexturedPlaneScene
-from tests.torch_port_util import cuda_device, torch_cameras  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    awkward_rig,
+    cuda_device,
+    torch_cameras,
+)
 
 XLA_ATOL = 1e-4
 PAGED_ATOL = 2e-3
@@ -174,17 +178,58 @@ def test_cpu_tensors_take_the_plain_path(rng):
     assert allview_ncc.KERNEL_LAUNCHES == launches
 
 
+def _kernel_args(tc, images, pos, nrm, refs, vis, k, device="cpu"):
+    """Arguments of `allview_scores_cuda` from a Cameras and arrays."""
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return [t(images), tc.K, tc.E, tc.C, tc.x_axis, tc.width, tc.height,
+            t(pos), t(nrm), t(refs).long(), t(vis), k]
+
+
 def test_kernel_wrapper_refuses_cpu_tensors(rng):
     cams, images = _setup(rng)
     pos, nrm, refs, vis = _patches(rng, 4, cams.num_views)
-    tc = torch_cameras(cams)
-    t = torch.as_tensor
-    sx, sy = patch_frames(tc, t(pos), t(nrm), t(refs).long(), 11)
     with pytest.raises(ValueError, match="CUDA"):
         allview_ncc.allview_scores_cuda(
-            t(images), tc.K, tc.R.contiguous(), tc.C, tc.width, tc.height,
-            t(pos), sx, sy, t(vis), 11,
+            *_kernel_args(torch_cameras(cams), images, pos, nrm, refs, vis, 11)
         )
+
+
+@pytest.mark.parametrize("case", [
+    "page_2_31", "k_zero", "k_too_large", "too_many_views", "normal_batch",
+    "ref_batch",
+])
+def test_kernel_wrapper_validates_shapes(rng, case):
+    """Shapes the kernel does not take raise `ValueError` before any launch
+    (so also here, where there is no card): a view of 2^31 pixels or more
+    (offsets inside a view are 32-bit), a texture side outside the range,
+    more views than a block's shared memory holds, and position, normal
+    and ref of different batch sizes."""
+    cams, images = _setup(rng)
+    V = cams.num_views
+    pos, nrm, refs, vis = _patches(rng, 4, V)
+    args = _kernel_args(torch_cameras(cams), images, pos, nrm, refs, vis, 11)
+    match = "shared memory"
+    if case == "page_2_31":  # a stack with no storage: only its shape counts
+        args[0] = torch.empty((V, 2**16, 2**15), device="meta")
+        match = "2\\^31"
+    elif case == "k_zero":
+        args[-1] = 0
+    elif case == "k_too_large":
+        args[-1] = 60
+    elif case == "too_many_views":
+        many = 300
+        args[0] = torch.empty((many, 16, 16), device="meta")
+        args[1] = torch.empty((many, 3, 3), device="meta")
+    elif case == "normal_batch":
+        args[8] = args[8][:3]
+        match = "one batch"
+    elif case == "ref_batch":
+        args[9] = args[9][:2]
+        match = "one batch"
+    launches = allview_ncc.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        allview_ncc.allview_scores_cuda(*args)
+    assert allview_ncc.KERNEL_LAUNCHES == launches
 
 
 @pytest.mark.cuda
@@ -209,3 +254,58 @@ def test_kernel_matches_plain_on_card(rng, cuda_device, k):
     assert torch.equal(a, pa) and torch.equal(ok, pok)
     assert torch.equal(s == -1, ps == -1)
     assert float((s - ps).abs().max()) <= XLA_ATOL
+
+
+def _awkward_rig(rng, V, B, device):
+    P, images, pos, nrm, refs, vis = awkward_rig(rng, V, B)
+    cams = JaxCameras.from_projection_matrices(P, widths=160, heights=120)
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return (t(images), torch_cameras(cams, device), t(pos), t(nrm),
+            t(refs).long(), t(vis))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,B,k", [
+    (1, 33, 11), (49, 64, 11), (130, 40, 5), (130, 40, 16), (8, 64, 1),
+    (8, 64, 5), (8, 64, 7), (8, 64, 11), (8, 64, 16), (8, 64, 21),
+    (8, 1, 11), (8, 0, 11),
+])
+def test_kernel_awkward_shapes_on_card(rng, cuda_device, V, B, k):
+    """Kernel vs plain on the card where the kernel's control flow is
+    stressed: one view, more views than a warp has lanes, textures with
+    fewer texels than lanes (k = 1, 5), two texels per lane (k = 7) and the
+    strided variant (k = 21),
+    batches of 0 and 1, a row with no visible view, rows off every frustum.
+    Scores within 1e-4, equal anchors, equal sentinel placement."""
+    args = (*_awkward_rig(rng, V, B, cuda_device), k)
+    launches = allview_ncc.KERNEL_LAUNCHES
+    s, a, ok = allview_ncc.allview_scores(*args)
+    ps, pa, pok = allview_ncc.allview_scores_plain(*args)
+    torch.cuda.synchronize()
+    assert allview_ncc.KERNEL_LAUNCHES == launches + (1 if B else 0)
+    assert s.shape == (B, V) and s.dtype == torch.float32
+    assert torch.equal(a, pa) and torch.equal(ok, pok)
+    assert torch.equal(s == -1, ps == -1)
+    assert bool(torch.isfinite(s).all())
+    if B:
+        assert float((s - ps).abs().max()) <= XLA_ATOL
+    if B > 8:
+        assert bool((s[2] == -1).all()) and bool((s[4:8] == -1).all())
+
+
+@pytest.mark.cuda
+def test_entry_point_launches_only_its_kernel(rng, cuda_device):
+    """On CUDA tensors `allview_scores` runs one device kernel, its own:
+    the patch frames are computed inside it, no torch op comes before."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = (*_awkward_rig(rng, 8, 64, cuda_device), 11)
+    allview_ncc.allview_scores(*args)  # build and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        allview_ncc.allview_scores(*args)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               for _ in range(e.count)]
+    assert len(kernels) == 1 and "allview_ncc_kernel" in kernels[0], kernels

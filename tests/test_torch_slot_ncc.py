@@ -22,12 +22,15 @@ from densepoints_tpu.pmvs.optimize import patch_ncc_scores as jax_scores
 from densepoints_tpu_torch.ops import warp_ncc
 from densepoints_tpu_torch.ops.warp import (
     compact_visible,
-    patch_frames,
     patch_textures_indexed,
 )
 from densepoints_tpu_torch.pmvs.optimize import patch_ncc_scores
 from tests.synthetic import TexturedPlaneScene
-from tests.torch_port_util import cuda_device, torch_cameras  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    awkward_rig,
+    cuda_device,
+    torch_cameras,
+)
 
 XLA_ATOL = 1e-4
 FUSED_ATOL = 2e-3
@@ -237,17 +240,72 @@ def test_gather_route_counts_in_ncc_not_as_slot_plain(rng):
     assert torch.equal(s, want) and torch.equal(got, want)
 
 
+def _kernel_args(targs, ids, ok, k):
+    """Arguments of `slot_scores_cuda` from `_targs` and a slot table."""
+    im, tc, p, n, r, _ = targs
+    return [im, tc.K, tc.E, tc.C, tc.x_axis, tc.width, tc.height, p, n, r,
+            ids, ok, k]
+
+
 def test_kernel_wrapper_refuses_cpu_tensors(rng):
     cams, images = _setup(rng)
     pos, nrm, refs, vis = _patches(rng, 4, cams.num_views)
-    im, tc, p, n, r, v = _targs(cams, images, pos, nrm, refs, vis)
-    sx, sy = patch_frames(tc, p, n, r, 11)
-    ids, ok = compact_visible(v, 16)
+    targs = _targs(cams, images, pos, nrm, refs, vis)
+    ids, ok = compact_visible(targs[5], 16)
     with pytest.raises(ValueError, match="CUDA"):
-        warp_ncc.slot_scores_cuda(
-            im, tc.K, tc.R.contiguous(), tc.C, tc.width, tc.height, p, sx, sy,
-            ids, ok, 11,
-        )
+        warp_ncc.slot_scores_cuda(*_kernel_args(targs, ids, ok, 11))
+
+
+@pytest.mark.parametrize("case", [
+    "page_2_31", "k_zero", "k_too_large", "too_many_slots", "no_slots",
+    "normal_batch", "ref_batch",
+])
+def test_kernel_wrapper_validates_shapes(rng, case):
+    """Shapes the kernel does not take raise `ValueError` before any launch
+    (so also here, where there is no card): a view of 2^31 pixels or more,
+    a texture side outside the range, more slots than a block's shared
+    memory holds, a slot table without slots, and position, normal and ref
+    of different batch sizes."""
+    cams, images = _setup(rng)
+    V = cams.num_views
+    pos, nrm, refs, vis = _patches(rng, 4, V)
+    targs = _targs(cams, images, pos, nrm, refs, vis)
+    ids, ok = compact_visible(targs[5], 16)
+    args = _kernel_args(targs, ids, ok, 11)
+    match = "shared memory"
+    if case == "page_2_31":  # a stack with no storage: only its shape counts
+        args[0] = torch.empty((V, 2**16, 2**15), device="meta")
+        match = "2\\^31"
+    elif case == "k_zero":
+        args[-1] = 0
+    elif case == "k_too_large":
+        args[-1] = 60
+    elif case == "too_many_slots":
+        args[10] = torch.zeros((4, 300), dtype=torch.int32)
+        args[11] = torch.ones((4, 300), dtype=torch.bool)
+    elif case == "no_slots":
+        args[10] = torch.zeros((4, 0), dtype=torch.int32)
+        args[11] = torch.ones((4, 0), dtype=torch.bool)
+        match = "M >= 1"
+    elif case == "normal_batch":
+        args[8] = args[8][:3]
+        match = "one batch"
+    elif case == "ref_batch":
+        args[9] = args[9][:2]
+        match = "one batch"
+    launches = warp_ncc.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        warp_ncc.slot_scores_cuda(*args)
+    assert warp_ncc.KERNEL_LAUNCHES == launches
+
+
+def test_plain_version_takes_an_empty_batch(rng):
+    cams, images = _setup(rng)
+    pos, nrm, refs, vis = _patches(rng, 4, cams.num_views)
+    im, tc, p, n, r, v = _targs(cams, images, pos[:0], nrm[:0], refs[:0],
+                                vis[:0])
+    s, ids, ok = patch_ncc_scores(im, tc, p, n, r, v, 11)
+    assert s.shape == ids.shape == ok.shape == (0, cams.num_views)
 
 
 @pytest.mark.cuda
@@ -272,3 +330,73 @@ def test_kernels_match_plain_on_card(rng, cuda_device, k, impl):
                    else (launches[0] + 1, launches[1]))
     assert torch.equal(s == -1, want == -1)
     assert float((s - want).abs().max()) <= XLA_ATOL
+
+
+def _awkward_rig(rng, V, B, device):
+    P, images, pos, nrm, refs, vis = awkward_rig(rng, V, B)
+    cams = JaxCameras.from_projection_matrices(P, widths=160, heights=120)
+    return _targs(cams, images, pos, nrm, refs, vis, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,B,k,M", [
+    (1, 33, 11, 16), (49, 64, 11, 16), (130, 40, 5, 16), (130, 40, 16, 130),
+    (8, 64, 1, 8), (8, 64, 5, 8), (8, 64, 7, 8), (8, 64, 16, 8),
+    (8, 64, 21, 8), (8, 64, 11, 1), (8, 1, 11, 8), (8, 0, 11, 8),
+])
+def test_kernel_awkward_shapes_on_card(rng, cuda_device, V, B, k, M):
+    """The slot kernel vs plain on the card where its control flow is
+    stressed: one view, a table wider than a warp (130 slots), textures
+    with fewer texels than lanes (k = 1, 5) and the strided variant
+    (k = 21), a table of one slot, batches of 0 and 1, a row with no
+    visible view, rows off every frustum."""
+    im, tc, p, n, r, v = _awkward_rig(rng, V, B, cuda_device)
+    ids, ok = compact_visible(v, M)
+    launches = warp_ncc.KERNEL_LAUNCHES
+    s = warp_ncc.slot_scores(im, tc, p, n, r, ids, ok, k)
+    want = warp_ncc.slot_scores_plain(im, tc, p, n, r, ids, ok, k)
+    torch.cuda.synchronize()
+    assert warp_ncc.KERNEL_LAUNCHES == launches + (1 if B else 0)
+    assert s.shape == (B, min(V, M)) and s.dtype == torch.float32
+    assert torch.equal(s == -1, want == -1)
+    assert bool(torch.isfinite(s).all()) and bool((s[~ok] == -1).all())
+    if B:
+        assert float((s - want).abs().max()) <= XLA_ATOL
+
+
+@pytest.mark.cuda
+def test_view_ids_outside_the_stack_are_dead_slots_on_card(rng, cuda_device):
+    """A slot whose view id lies outside [0, V) scores -1 as if its ok were
+    unset, and the other slots of its row are not disturbed."""
+    im, tc, p, n, r, v = _awkward_rig(rng, 8, 64, cuda_device)
+    ids, ok = compact_visible(v, 8)
+    bad = ids.clone()
+    bad[:, 3] = -1
+    bad[:, 5] = 8 + 3
+    dead = ok.clone()
+    dead[:, 3] = False
+    dead[:, 5] = False
+    s = warp_ncc.slot_scores(im, tc, p, n, r, bad, ok, 11)
+    want = warp_ncc.slot_scores_plain(im, tc, p, n, r, ids, dead, 11)
+    torch.cuda.synchronize()
+    assert bool((s[:, [3, 5]] == -1).all())
+    assert torch.equal(s == -1, want == -1)
+    assert float((s - want).abs().max()) <= XLA_ATOL
+
+
+@pytest.mark.cuda
+def test_entry_point_launches_only_its_kernel(rng, cuda_device):
+    """On CUDA tensors `slot_scores` runs one device kernel, its own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    im, tc, p, n, r, v = _awkward_rig(rng, 8, 64, cuda_device)
+    ids, ok = compact_visible(v, 8)
+    warp_ncc.slot_scores(im, tc, p, n, r, ids, ok, 11)  # build and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        warp_ncc.slot_scores(im, tc, p, n, r, ids, ok, 11)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               for _ in range(e.count)]
+    assert len(kernels) == 1 and "slot_ncc_kernel" in kernels[0], kernels
