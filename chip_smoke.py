@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-allview
+    python3 chip_smoke.py --time-window
     python3 chip_smoke.py --profile-main
     python3 chip_smoke.py --kernel-resources
 
@@ -11,7 +12,8 @@ no result line:
   1. device: the card's name and `nvidia-smi` name/power limit (a CUDA card
      is required; there is no CPU fallback);
   2. build: compiles every CUDA kernel of the package from the sources in
-     this checkout (one nvcc call, sm_90a) and prints the build seconds;
+     this checkout (one nvcc per source, all at once, then one link;
+     sm_90a) and prints the build seconds;
   3. all-views kernel vs plain: `ops.allview_ncc` against its plain torch
      version on the card at the refine shape (8 views of 480 x 640, 4096
      patches, k = 11 and 16, plus mixed-visibility, no-visibility and
@@ -28,13 +30,16 @@ no result line:
      k = 11 and 16) and the DTU shape (4 anchor-pinned chunks of 16 slots,
      k = 16): scores within 1e-4, equal sentinel placement; the awkward
      shapes too, with a table of one slot and view ids outside the stack;
-  6. window kernels vs plain: `ops.window_ncc` (`full`, `staged`,
-     `warp_slot`, and the gradient form against its own plain version) and
-     `ops.window_textures` (`full`, `staged`, `warp_slot`) at the shapes of
-     the two ablation programs and at one awkward shape each (a patch count
+  6. window kernels vs plain: `ops.window_ncc` (`full`, `staged`, `block`,
+     and the gradient form against its own plain version) and
+     `ops.window_textures` (`full`, `staged`, `block`) at the shapes of the
+     two ablation programs and at one awkward shape each (a patch count
      that is no multiple of 8, k = 16, taps outside the window, windows
-     over the stack's edges, dead slots): scores within 1e-4, textures
-     within 1e-3 grey levels;
+     over the stack's edges, dead slots), then at n = 1, 32, 33, 121, 256
+     and 300 texels (each texels-per-lane layout of the warp bodies and the
+     strided one) and at n = 121 in coordinate rows of 123 floats (the
+     scalar coordinate loads): scores within 1e-4, textures within 1e-3
+     grey levels, dead slots exactly zero;
   7. the slot-scoring path: `pmvs.patch_ncc_scores` and the chunked
      `photometric_objective` through the slot kernel ("auto", "fused") and
      through torch gathers + the row-wise NCC kernel ("xla"), held against
@@ -57,7 +62,9 @@ Each kernel's time stands beside its bound: the larger of the bytes it must
 move (every input read once, every output written once; of the image stack
 no more than the 4 taps of every texel this run's data samples) over
 3.35 TB/s and the f32 operations the function needs on this run's data over
-67 TFLOP/s (H100 SXM data sheet).
+67 TFLOP/s (H100 SXM data sheet; `densepoints_tpu_torch/scripts/_timing.py`,
+whose `time_ms` also times every kernel: 10 calls back to back behind a
+device-side sleep).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
@@ -69,12 +76,17 @@ chunk (16 slots), and the entry point `allview_scores` at the refine k = 11
 shape (`wrapper_refine_k11_ms` by CUDA events, `wrapper_host_refine_k11_ms`
 on the host's clock until the call returns). It takes the package
 from the directory it lies in, so a copy of it placed in a checkout of
-another commit times that commit's kernel: run the two in turns (parent,
-change, change, parent) within one job to compare them on one card.
+another commit, with this commit's `densepoints_tpu_torch/scripts/
+_timing.py` copied beside it, times that commit's kernels: run the two in
+turns (parent, change, change, parent) within one job to compare them on
+one card. `--time-window` does the same for `full` of the two window
+kernels: K4 at the ablation program's shape and the awkward one, K5 at
+both of its program's shapes and the awkward one.
 `--profile-main` runs the CLI on the sphere scene under `torch.profiler`
 and prints one JSON line of its device ops, launches and stage seconds.
-`--kernel-resources` prints the registers and spills `ptxas` reports for
-the two warp + NCC kernels.
+`--kernel-resources` prints the registers, stack and spills `ptxas`
+reports for every kernel instance of the two warp + NCC kernels and the
+two window kernels.
 """
 from __future__ import annotations
 
@@ -97,8 +109,6 @@ WINDOW_SCORE_ATOL = 1e-4
 WINDOW_TEXTURE_ATOL = 1e-3
 GRAD_VS_FULL_ATOL = 1e-3  # left + fx * grad vs the two-tap blend, f32
 SPHERE_RADIUS = 150.0
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
-F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores, published
 # f32 operations the function needs for one warped texel, whatever a kernel
 # body spends: the projection is affine in the texel's (column, row) before
 # the division, h = A + c B + r C with A, B, C fixed per (patch, view), so
@@ -147,9 +157,9 @@ def phase_device():
 
 
 def phase_build():
-    """One nvcc call builds every kernel (allview_ncc, slot_ncc, ncc_pairs,
-    window_ncc, window_textures) into one library; the bindings fail later
-    if a symbol is missing."""
+    """One nvcc per source builds every kernel (allview_ncc, slot_ncc,
+    ncc_pairs, window_ncc, window_textures) into one library; the bindings
+    fail later if a symbol is missing."""
     from densepoints_tpu_torch.ops import allview_ncc
 
     t0 = time.perf_counter()
@@ -159,14 +169,17 @@ def phase_build():
 
 
 def _nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
+    from densepoints_tpu_torch.scripts import _timing
+
+    return _timing.nbytes(*tensors)
 
 
 def _bound(nbytes, flops):
-    """(bound_ms, bound_by): the least time the card could take."""
-    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * flops / F32_FLOPS_PER_S
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+    """(bound_ms, bound_by): the least time the card could take
+    (`scripts._timing.bound`)."""
+    from densepoints_tpu_torch.scripts import _timing
+
+    return _timing.bound(nbytes, flops)
 
 
 def _warp_bound(images, others, patches, textures, k):
@@ -277,27 +290,12 @@ def _corner_margin(cams, pos, frames, b, v):
 
 
 def _time_ms(fn, reps=20, batch=1):
-    """Median CUDA-event milliseconds per call over `reps` timings (call it
-    warm). With `batch` > 1 each timing queues `batch` calls behind a short
-    device-side sleep, so that the card runs them back to back and a kernel
-    shorter than the host's time to launch it (~0.05 ms through a Python
-    wrapper) is timed and not the host."""
-    import torch
+    """Median CUDA-event milliseconds per call over `reps` timings of `fn`
+    (call it warm), `batch` calls back to back per timing
+    (`scripts._timing.time_ms`)."""
+    from densepoints_tpu_torch.scripts import _timing
 
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if batch > 1:
-            torch.cuda._sleep(200_000 * batch)  # ~0.1 ms per queued call
-        start.record()
-        for _ in range(batch):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / batch)
-    times.sort()
-    return times[len(times) // 2]
+    return _timing.time_ms(fn, reps, warm=0, batch=batch)
 
 
 KERNEL_BATCH = 10  # calls per timing of a kernel alone
@@ -531,14 +529,23 @@ def compare_slot_kernel(label, cams, images, pos, nrm, ref, view_ids, ok, k,
     return _result(err, ms, bound)
 
 
-def _window_ncc_awkward(device):
-    """B not a multiple of 8, k = 16, taps outside the window, windows that
-    hang over the stack's edges."""
+# Texel counts of the awkward window shapes: one of each texels-per-lane
+# dispatch of the warp bodies (1, 1, 2, 4, 8 per lane and the strided form),
+# and at n = 121 a coordinate row of 123 floats, which takes the scalar
+# coordinate loads (no float4).
+WINDOW_AWKWARD = ((1, None), (32, None), (33, None), (121, None),
+                  (121, 123), (256, None), (300, None))
+
+
+def _window_ncc_awkward(device, n=256, S=None, seed=5):
+    """B not a multiple of 8, n texels in rows of S >= n coordinates, taps
+    outside the window, windows that hang over the stack's edges."""
     import numpy as np
     import torch
 
-    rng = np.random.default_rng(5)
-    B, M, n, R, W = 1001, 5, 256, 700, 300
+    rng = np.random.default_rng(seed)
+    B, M, R, W = 1001, 5, 700, 300
+    S = S or n
     stack = rng.uniform(0, 255, (R, W)).astype(np.float32)
     grad = np.concatenate([stack[:, 1:] - stack[:, :-1],
                            np.zeros((R, 1), np.float32)], 1)
@@ -547,15 +554,16 @@ def _window_ncc_awkward(device):
         "stack": t(stack), "grad_stack": t(grad),
         "row0": t(rng.integers(-20, R - 30, (B, M)).astype(np.int32)),
         "x0": t(rng.integers(-30, W - 90, (B, M)).astype(np.int32)),
-        "xs": t(rng.uniform(-3, 131, (B, M, n)).astype(np.float32)),
-        "ys": t(rng.uniform(-3, 59, (B, M, n)).astype(np.float32)),
+        "xs": t(rng.uniform(-3, 131, (B, M, S)).astype(np.float32)),
+        "ys": t(rng.uniform(-3, 59, (B, M, S)).astype(np.float32)),
         "n_real": n,
     }
 
 
-def compare_window_ncc(label, inp, plain_reps=20):
+def compare_window_ncc(label, inp, plain_reps=20, timed=True):
     """`ops.window_ncc` vs plain on one input set: every score-computing
-    variant, and the gradient form against its own plain version."""
+    variant, and the gradient form against its own plain version; then,
+    when `timed`, the times of `full` and of the plain version."""
     import torch
 
     from densepoints_tpu_torch.ops import window_ncc
@@ -578,6 +586,13 @@ def compare_window_ncc(label, inp, plain_reps=20):
     for variant, err in errs.items():
         check(err <= WINDOW_SCORE_ATOL,
               f"{label} {variant}: max |kernel - plain| {err:.3e}")
+    B, M = inp["row0"].shape
+    line = (f"[window_ncc] {label}: B={B} M={M} n={inp['n_real']} "
+            f"S={inp['xs'].shape[2]} "
+            + " ".join(f"{v}_err={e:.3e}" for v, e in errs.items()))
+    if not timed:
+        print(line, flush=True)
+        return {"max_abs_err": max(errs.values())}
     ms = {
         **_time_runs({
             "kernel": lambda: window_ncc.window_scores_cuda(*args),
@@ -588,36 +603,37 @@ def compare_window_ncc(label, inp, plain_reps=20):
         }, plain_reps),
     }
     bound = kernel_ablate.scores_bound(inp, want, grad=False)
-    B, M = inp["row0"].shape
-    print(f"[window_ncc] {label}: B={B} M={M} n={inp['n_real']} "
-          + " ".join(f"{v}_err={e:.3e}" for v, e in errs.items())
-          + f" kernel_ms={ms['kernel']:.4f} plain_ms={ms['plain']:.4f} "
+    print(line + f" kernel_ms={ms['kernel']:.4f} plain_ms={ms['plain']:.4f} "
           f"wrapper_ms={ms['wrapper']:.4f} bound_ms={bound[0]:.5f} "
           f"({bound[1]})", flush=True)
     return _result(max(errs.values()), ms, bound)
 
 
-def _window_textures_awkward(device):
-    """A slot count that is no multiple of 4, k = 16, taps outside the
-    window, windows past the page's ends, dead slots."""
+def _window_textures_awkward(device, n=256, S=None, seed=6):
+    """A slot count that is no multiple of 4, n texels in rows of S >= n
+    coordinates, taps outside the window, windows past the page's ends,
+    dead slots."""
     import numpy as np
     import torch
 
-    rng = np.random.default_rng(6)
-    N, n, P, R = 10007, 256, 5, 300
+    rng = np.random.default_rng(seed)
+    N, P, R = 10007, 5, 300
+    S = S or n
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     return {
         "pages": t(rng.uniform(0, 255, (P, R, 128)).astype(np.float32)),
         "page": t(rng.integers(-1, P, N).astype(np.int32)),
         "row0": t(rng.integers(-20, R - 30, N).astype(np.int32)),
-        "xs": t(rng.uniform(-3, 131, (N, n)).astype(np.float32)),
-        "ys": t(rng.uniform(-3, 59, (N, n)).astype(np.float32)),
+        "xs": t(rng.uniform(-3, 131, (N, S)).astype(np.float32)),
+        "ys": t(rng.uniform(-3, 59, (N, S)).astype(np.float32)),
         "n_real": n,
     }
 
 
-def compare_window_textures(label, inp, plain_reps=20):
-    """`ops.window_textures` vs plain on one input set."""
+def compare_window_textures(label, inp, plain_reps=20, timed=True):
+    """`ops.window_textures` vs plain on one input set: every
+    texture-computing variant, dead slots exactly zero; then, when `timed`,
+    the times of `full` and of the plain version."""
     import torch
 
     from densepoints_tpu_torch.ops import window_textures
@@ -626,7 +642,7 @@ def compare_window_textures(label, inp, plain_reps=20):
     args = (inp["pages"], inp["page"], inp["row0"], inp["xs"], inp["ys"],
             inp["n_real"], kernel_paged_ablate.WIN_H)
     want = window_textures.window_centered_textures_plain(*args)
-    dead = inp["page"] < 0
+    dead = (inp["page"] < 0) | (inp["page"] >= inp["pages"].shape[0])
     errs = {}
     for variant in window_textures.SCORING_VARIANTS:
         got = window_textures.window_centered_textures(*args, variant=variant)
@@ -637,6 +653,13 @@ def compare_window_textures(label, inp, plain_reps=20):
         errs[variant] = float((got - want).abs().max())
         check(errs[variant] <= WINDOW_TEXTURE_ATOL,
               f"{label} {variant}: max |kernel - plain| {errs[variant]:.3e}")
+    line = (f"[window_textures] {label}: N={inp['page'].shape[0]} "
+            f"n={inp['n_real']} S={inp['xs'].shape[1]} "
+            f"dead={int(dead.sum())} "
+            + " ".join(f"{v}_err={e:.3e}" for v, e in errs.items()))
+    if not timed:
+        print(line, flush=True)
+        return {"max_abs_err": max(errs.values())}
     ms = {
         **_time_runs({
             "kernel": lambda:
@@ -648,10 +671,7 @@ def compare_window_textures(label, inp, plain_reps=20):
         }, plain_reps),
     }
     bound = kernel_paged_ablate.textures_bound(inp, want)
-    print(f"[window_textures] {label}: N={inp['page'].shape[0]} "
-          f"n={inp['n_real']} dead={int(dead.sum())} "
-          + " ".join(f"{v}_err={e:.3e}" for v, e in errs.items())
-          + f" kernel_ms={ms['kernel']:.4f} plain_ms={ms['plain']:.4f} "
+    print(line + f" kernel_ms={ms['kernel']:.4f} plain_ms={ms['plain']:.4f} "
           f"bound_ms={bound[0]:.5f} ({bound[1]})", flush=True)
     return _result(max(errs.values()), ms, bound)
 
@@ -806,6 +826,14 @@ def phase_kernels(device):
             plain_reps=5)
     results["window_textures"]["awkward"] = compare_window_textures(
         "awkward shape", _window_textures_awkward(device))
+    for n, S in WINDOW_AWKWARD:
+        key = f"awkward_n{n}" + (f"_S{S}" if S else "")
+        results["window_ncc"][key] = compare_window_ncc(
+            f"awkward n={n}", _window_ncc_awkward(device, n, S, seed=n),
+            timed=False)
+        results["window_textures"][key] = compare_window_textures(
+            f"awkward n={n}", _window_textures_awkward(device, n, S, seed=n),
+            timed=False)
     torch.cuda.empty_cache()
     for N, L in ((32768, 121), (262144, 256)):
         for masked in (False, True):
@@ -1309,40 +1337,102 @@ def profile_main(device):
     }), flush=True)
 
 
-def kernel_resources(device):
-    """The `--kernel-resources` mode: registers, spills and shared memory of
-    every instance of the two warp + NCC kernels, as `nvcc -Xptxas -v`
-    reports them for sm_90a, one JSON line."""
+def time_window(device):
+    """The `--time-window` mode: one JSON line of kernel-only times of
+    `full` of the two window kernels (three medians of 50 back-to-back
+    timings): K4 at the ablation program's shape and the awkward one, K5 at
+    both of its program's shapes and the awkward one."""
+    import torch
+
+    from densepoints_tpu_torch.ops import window_ncc, window_textures
+    from densepoints_tpu_torch.scripts import (
+        kernel_ablate,
+        kernel_paged_ablate,
+    )
+
+    out = {"root": str(ROOT), "card": torch.cuda.get_device_name(0)}
+
+    def medians(label, fn):
+        for _ in range(5):
+            fn()
+        out[label] = [round(_time_ms(fn, 50, KERNEL_BATCH), 4)
+                      for _ in range(3)]
+
+    for label, inp in (("window_ncc_script_ms",
+                        kernel_ablate.script_inputs(device)),
+                       ("window_ncc_awkward_ms",
+                        _window_ncc_awkward(device))):
+        args = (inp["stack"], inp["row0"], inp["x0"], inp["xs"], inp["ys"],
+                inp["n_real"], kernel_ablate.WIN_H, kernel_ablate.WIN_W)
+        medians(label, lambda: window_ncc.window_scores_cuda(*args))
+        del inp, args
+    shapes = [(name, kernel_paged_ablate.script_inputs(device, n_slots, V, R,
+                                                       k))
+              for name, n_slots, V, R, k in kernel_paged_ablate.SHAPES]
+    shapes.append(("awkward", _window_textures_awkward(device)))
+    for name, inp in shapes:
+        args = (inp["pages"], inp["page"], inp["row0"], inp["xs"], inp["ys"],
+                inp["n_real"], kernel_paged_ablate.WIN_H)
+        medians(f"window_textures_{name}_ms",
+                lambda: window_textures.window_centered_textures_cuda(*args))
+    print(json.dumps(out), flush=True)
+
+
+def _ptxas_resources(source):
+    """Registers, stack and spills of every kernel in `source` as `nvcc
+    -Xptxas -v` reports them for sm_90a, keyed by the kernel's name and
+    template arguments."""
     import re
+    import shutil
 
     from densepoints_tpu_torch.ops import _build
 
-    out = {"root": str(ROOT)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        for name in ("allview_ncc", "slot_ncc"):
-            proc = subprocess.run(
-                [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                 "-std=c++17", "-O3", "-Xptxas", "-v", "-c", "-o",
-                 str(Path(tmp) / f"{name}.o"),
-                 str(ROOT / "densepoints_tpu_torch" / "csrc" / f"{name}.cu")],
-                capture_output=True, text=True)
-            check(proc.returncode == 0, f"nvcc failed: {proc.stderr}")
-            found = re.findall(
-                rf"{name}_kernelILi(\d)E.*?(\d+) bytes stack frame, (\d+) "
-                r"bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) "
-                r"registers", proc.stderr, flags=re.S)
-            check(len(found) == 5, f"{name}: {len(found)} kernels in ptxas -v")
-            out[name] = {
-                f"T={t}": {"registers": int(regs), "stack_bytes": int(stack),
-                           "spill_store_bytes": int(st),
-                           "spill_load_bytes": int(ld)}
-                for t, stack, st, ld, regs in sorted(found)}
+        proc = subprocess.run(
+            [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-Xptxas", "-v", "-c", "-o",
+             str(Path(tmp) / "kernels.o"), str(source)],
+            capture_output=True, text=True)
+    check(proc.returncode == 0, f"nvcc failed: {proc.stderr}")
+    found = {}
+    for chunk in proc.stderr.split("Compiling entry function '")[1:]:
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads.*?Used (\d+) registers",
+                      chunk, flags=re.S)
+        check(m is not None, f"{source}: no resources in ptxas -v")
+        stack, st, ld, regs = map(int, m.groups())
+        found[chunk.split("'", 1)[0]] = {
+            "registers": regs, "stack_bytes": stack,
+            "spill_store_bytes": st, "spill_load_bytes": ld}
+    check(len(found) > 0, f"{source}: no kernel in ptxas -v")
+    names = list(found)
+    filt = shutil.which("c++filt")
+    if filt:
+        demangled = subprocess.run([filt], input="\n".join(names),
+                                   capture_output=True, text=True
+                                   ).stdout.splitlines()
+        if len(demangled) == len(names):
+            # "void (anonymous namespace)::name<args>(params)" -> name<args>
+            names = [re.search(r"\w+(<[^()]*>)?(?=\()", d).group(0)
+                     for d in demangled]
+    return dict(zip(names, found.values()))
+
+
+def kernel_resources(device):
+    """The `--kernel-resources` mode: registers, spills and stack of every
+    kernel instance of the warp + NCC kernels and the two window kernels,
+    one JSON line."""
+    out = {"root": str(ROOT)}
+    for name in ("allview_ncc", "slot_ncc", "window_ncc", "window_textures"):
+        out[name] = _ptxas_resources(
+            ROOT / "densepoints_tpu_torch" / "csrc" / f"{name}.cu")
     print(json.dumps(out), flush=True)
 
 
 def main() -> int:
     sys.path.insert(0, str(ROOT))
-    modes = {"--time-allview": time_allview, "--profile-main": profile_main,
+    modes = {"--time-allview": time_allview, "--time-window": time_window,
+             "--profile-main": profile_main,
              "--kernel-resources": kernel_resources}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         try:

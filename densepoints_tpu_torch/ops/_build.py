@@ -1,11 +1,11 @@
 """Build and binding of the package's CUDA kernels.
 
-Every `csrc/*.cu` is compiled by one nvcc call (sm_90a) into one shared
-library with a plain C interface under `_build/`, at first use. The file
-name carries a hash of all sources, headers and flags, so an edit of any of
-them builds anew. Functions are bound with ctypes; `launch` sets the argument
-types (pointers and the stream as `c_void_p`, or ctypes would cut them to
-32 bits).
+Every `csrc/*.cu` is compiled (sm_90a) into one shared library with a plain
+C interface under `_build/`, at first use: one nvcc per source, all started
+together, then one link. The file name carries a hash of all sources,
+headers and flags, so an edit of any of them builds anew. Functions are
+bound with ctypes; `launch` sets the argument types (pointers and the
+stream as `c_void_p`, or ctypes would cut them to 32 bits).
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -28,7 +29,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "--threads", "0",
+    "-Xcompiler", "-fPIC",
 )
 _lock = threading.Lock()
 _lib = None
@@ -49,6 +50,21 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _run_together(cmds):
+    """Start every command at once, wait for all; raise if any failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{stdout}\n{stderr}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build_library() -> Path:
     """Compile csrc/*.cu into one shared library under _build/ unless a
     build of the same sources, headers and flags is there; returns its path."""
@@ -62,13 +78,12 @@ def build_library() -> Path:
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as objdir:
+        objects = [str(Path(objdir) / f"{src.stem}.o") for src in sources]
+        _run_together([[nvcc, *_NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                       for src, obj in zip(sources, objects)])
+        _run_together([[nvcc, "-shared", "-o", str(tmp), *objects]])
     os.replace(tmp, out)
     return out
 

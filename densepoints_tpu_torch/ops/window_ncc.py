@@ -16,9 +16,11 @@ no visibility and there are no sentinels.
 
 `window_scores` launches the hand-written kernel in `csrc/window_ncc.cu` on
 CUDA tensors or raises; on CPU tensors it runs `window_scores_plain`.
-`KERNEL_LAUNCHES` and `PLAIN_CALLS` count which ran. The variants switch one
-cost centre of the kernel off (see the source); `SCORING_VARIANTS` still
-compute the scores, the others exist to be timed and have no CPU version.
+`KERNEL_LAUNCHES` and `PLAIN_CALLS` count which ran. `full` is a warp per
+patch; `noload`, `noreduce` and `bare` switch one cost centre of it off and
+exist to be timed (no CPU version); `block` is the first body (a block per
+patch) and `staged` that body with the window in shared memory (see the
+source). `SCORING_VARIANTS` compute the scores.
 """
 from __future__ import annotations
 
@@ -42,11 +44,16 @@ __all__ = [
 KERNEL_LAUNCHES = 0  # kernel launches, counted where the kernel launches
 PLAIN_CALLS = 0  # calls answered by the plain torch version (CPU tensors)
 
-VARIANTS = ("full", "noload", "noreduce", "bare", "staged", "warp_slot")
+VARIANTS = ("full", "noload", "noreduce", "bare", "staged", "block")
 GRAD_VARIANTS = ("full", "noload", "noreduce")  # with a gradient stack
-SCORING_VARIANTS = ("full", "staged", "warp_slot")
+SCORING_VARIANTS = ("full", "staged", "block")
 NCC_MIN_DENOM = 0.1
 _SMEM_BYTES = 48 * 1024  # static limit: no opt-in attribute is set
+# Mirrors of csrc/window_sample.cuh: warps (patches or slots) of a block of
+# the warp body, and the most texels a warp holds in registers; above that
+# the warp body keeps slot 0's centred texture in shared memory.
+_WARPS = 4
+_REGISTER_TEXELS = 256
 
 _VP, _I64, _INT = _build.VOID_P, _build.INT64, _build.INT
 _ARGTYPES = (
@@ -64,6 +71,52 @@ def _check_variant(variant: str, grad: bool):
             f"unknown variant {variant!r}"
             f"{' with a gradient stack' if grad else ''}: one of {allowed}"
         )
+
+
+def check_offsets(win_h: int, win_w: int, width: int):
+    """Raise unless a tap's offset from its window's corner, at most
+    (win_h + 1) rows of `width` and win_w + 1 columns away, fits the
+    kernels' 32-bit offsets."""
+    if (win_h + 2) * width + win_w + 2 >= 2**31:
+        raise ValueError(
+            f"window {win_h} x {win_w} on rows of {width}: tap offsets from "
+            "a window's corner are 32-bit, (win_h + 2) * width + win_w + 2 "
+            "must stay below 2^31"
+        )
+
+
+def check_smem(variant: str, floats: int, what: str):
+    if 4 * floats > _SMEM_BYTES:
+        raise ValueError(
+            f"variant {variant!r} needs {4 * floats} bytes of shared memory "
+            f"at {what}; the limit is {_SMEM_BYTES}"
+        )
+
+
+def _check_shapes(stack, row0, xs, n_real, win_h, win_w, variant):
+    """Raise `ValueError` unless the kernel takes these shapes; shapes only,
+    so it runs before any launch and on any device. Returns (R, W, B, M,
+    S, n)."""
+    if stack.ndim != 2 or row0.ndim != 2 or xs.ndim != 3:
+        raise ValueError(
+            f"expected stack (R, W), row0 (B, M), xs (B, M, S); got "
+            f"{tuple(stack.shape)}, {tuple(row0.shape)}, {tuple(xs.shape)}"
+        )
+    R, W = stack.shape
+    B, M = row0.shape
+    S = xs.shape[2]
+    n = int(n_real)
+    if not 1 <= n <= S:
+        raise ValueError(f"n_real {n} outside 1..{S} (the lanes of xs)")
+    if M < 1 or win_h < 1 or win_w < 1:
+        raise ValueError(f"M {M}, window {win_h} x {win_w}: all must be >= 1")
+    check_offsets(win_h, win_w, W)
+    if variant in ("block", "staged"):
+        floats = 2 * n + (win_h * win_w if variant == "staged" else 0)
+    else:
+        floats = _WARPS * n if n > _REGISTER_TEXELS else 0
+    check_smem(variant, floats, f"n_real {n}, window {win_h} x {win_w}")
+    return R, W, B, M, S, n
 
 
 def window_samples(
@@ -164,31 +217,11 @@ def window_scores_cuda(
     contiguous on one CUDA device. Returns scores (B, M) f32."""
     global KERNEL_LAUNCHES
     _check_variant(variant, grad_stack is not None)
+    R, W, B, M, S, n = _check_shapes(
+        stack, row0, xs, n_real, win_h, win_w, variant)
     dev = stack.device
     if dev.type != "cuda":
         raise ValueError(f"window_scores_cuda needs CUDA tensors, got {dev}")
-    if stack.ndim != 2 or row0.ndim != 2 or xs.ndim != 3:
-        raise ValueError(
-            f"expected stack (R, W), row0 (B, M), xs (B, M, S); got "
-            f"{tuple(stack.shape)}, {tuple(row0.shape)}, {tuple(xs.shape)}"
-        )
-    R, W = stack.shape
-    B, M = row0.shape
-    S = xs.shape[2]
-    n = int(n_real)
-    if not 1 <= n <= S:
-        raise ValueError(f"n_real {n} outside 1..{S} (the lanes of xs)")
-    if M < 1 or win_h < 1 or win_w < 1:
-        raise ValueError(f"M {M}, window {win_h} x {win_w}: all must be >= 1")
-    floats = {"staged": 2 * n + win_h * win_w, "warp_slot": 4 * 2 * n}.get(
-        variant, 2 * n
-    )
-    if 4 * floats > _SMEM_BYTES:
-        raise ValueError(
-            f"variant {variant!r} needs {4 * floats} bytes of shared memory "
-            f"at n_real {n}, window {win_h} x {win_w}; the limit is "
-            f"{_SMEM_BYTES}"
-        )
     check = _build.check_tensor
     check("stack", stack, dev, torch.float32, (R, W))
     if grad_stack is not None:

@@ -10,15 +10,21 @@ of the all-views scoring pass, held apart to be timed.
 `window_centered_textures` launches the hand-written kernel in
 `csrc/window_textures.cu` on CUDA tensors or raises; on CPU tensors it runs
 `window_centered_textures_plain`. `KERNEL_LAUNCHES` and `PLAIN_CALLS` count
-which ran. `SCORING_VARIANTS` compute the textures; the other variants only
-bound a cost of the kernel and have no CPU version.
+which ran. `full` is a warp per slot; `noload`, `noreduce` and `bare` switch
+one cost centre of it off and exist to be timed (no CPU version); `block` is
+the first body (a block per slot) and `staged` that body with the window in
+shared memory (see the source). `SCORING_VARIANTS` compute the textures.
 """
 from __future__ import annotations
 
 import torch
 
 from densepoints_tpu_torch.ops import _build
-from densepoints_tpu_torch.ops.window_ncc import window_samples
+from densepoints_tpu_torch.ops.window_ncc import (
+    check_offsets,
+    check_smem,
+    window_samples,
+)
 
 __all__ = [
     "window_centered_textures",
@@ -33,9 +39,8 @@ __all__ = [
 KERNEL_LAUNCHES = 0  # kernel launches, counted where the kernel launches
 PLAIN_CALLS = 0  # calls answered by the plain torch version (CPU tensors)
 
-VARIANTS = ("full", "noload", "noreduce", "bare", "staged", "warp_slot")
-SCORING_VARIANTS = ("full", "staged", "warp_slot")
-_SMEM_BYTES = 48 * 1024  # static limit: no opt-in attribute is set
+VARIANTS = ("full", "noload", "noreduce", "bare", "staged", "block")
+SCORING_VARIANTS = ("full", "staged", "block")
 
 _VP, _I64, _INT = _build.VOID_P, _build.INT64, _build.INT
 _ARGTYPES = (
@@ -49,6 +54,30 @@ _ARGTYPES = (
 def _check_variant(variant: str):
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}: one of {VARIANTS}")
+
+
+def _check_shapes(pages, page, xs, n_real, win_h, variant):
+    """Raise `ValueError` unless the kernel takes these shapes; shapes only,
+    so it runs before any launch and on any device. Returns (P, R, W, N, S,
+    n)."""
+    if pages.ndim != 3 or page.ndim != 1 or xs.ndim != 2:
+        raise ValueError(
+            f"expected pages (P, R, W), page (N,), xs (N, S); got "
+            f"{tuple(pages.shape)}, {tuple(page.shape)}, {tuple(xs.shape)}"
+        )
+    P, R, W = pages.shape
+    N = page.shape[0]
+    S = xs.shape[1]
+    n = int(n_real)
+    if not 1 <= n <= S:
+        raise ValueError(f"n_real {n} outside 1..{S} (the lanes of xs)")
+    if win_h < 1:
+        raise ValueError(f"win_h {win_h} must be >= 1")
+    check_offsets(win_h, W, W)
+    # The warp body keeps nothing in shared memory.
+    floats = {"block": n, "staged": n + win_h * W}.get(variant, 0)
+    check_smem(variant, floats, f"n_real {n}, window {win_h} x {W}")
+    return P, R, W, N, S, n
 
 
 def window_centered_textures_plain(
@@ -87,29 +116,11 @@ def window_centered_textures_cuda(
     CUDA device. Returns textures (N, n_real) f32."""
     global KERNEL_LAUNCHES
     _check_variant(variant)
+    P, R, W, N, S, n = _check_shapes(pages, page, xs, n_real, win_h, variant)
     dev = pages.device
     if dev.type != "cuda":
         raise ValueError(
             f"window_centered_textures_cuda needs CUDA tensors, got {dev}"
-        )
-    if pages.ndim != 3 or page.ndim != 1 or xs.ndim != 2:
-        raise ValueError(
-            f"expected pages (P, R, W), page (N,), xs (N, S); got "
-            f"{tuple(pages.shape)}, {tuple(page.shape)}, {tuple(xs.shape)}"
-        )
-    P, R, W = pages.shape
-    N = page.shape[0]
-    S = xs.shape[1]
-    n = int(n_real)
-    if not 1 <= n <= S:
-        raise ValueError(f"n_real {n} outside 1..{S} (the lanes of xs)")
-    if win_h < 1:
-        raise ValueError(f"win_h {win_h} must be >= 1")
-    floats = {"staged": n + win_h * W, "warp_slot": 4 * n}.get(variant, n)
-    if 4 * floats > _SMEM_BYTES:
-        raise ValueError(
-            f"variant {variant!r} needs {4 * floats} bytes of shared memory "
-            f"at n_real {n}, window {win_h} x {W}; the limit is {_SMEM_BYTES}"
         )
     check = _build.check_tensor
     check("pages", pages, dev, torch.float32, (P, R, W))

@@ -31,19 +31,27 @@ def card_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Median CUDA-event milliseconds of `reps` calls after `warm` calls."""
+def time_ms(fn, reps: int = 20, warm: int = 3, batch: int = 10) -> float:
+    """Median CUDA-event milliseconds per call over `reps` timings, after
+    `warm` calls. Each timing queues `batch` calls behind a short
+    device-side sleep, so that the card runs them back to back and a kernel
+    shorter than the host's time to launch it (~0.05 ms through a Python
+    wrapper) is timed and not the host; `batch` = 1 times one call between
+    two events, as a caller makes it."""
     for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if batch > 1:
+            torch.cuda._sleep(200_000 * batch)  # ~0.1 ms per queued call
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     times.sort()
     return times[len(times) // 2]
 

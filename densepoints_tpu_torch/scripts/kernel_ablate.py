@@ -6,11 +6,14 @@ Stands for `scripts/kernel_ablate.py` of the JAX package: the same inputs
 (`np.random.default_rng(0)`, 4096 patches of 8 slots, k = 11 in 128 lanes,
 56 x 128 windows on a row-flattened stack of 16 images of 480 x 640, and
 the stack of its horizontal differences), here in f32. Every variant of
-`ops.window_ncc` is timed with CUDA events (median of 20 after warm-up)
-and the score-computing ones are held against `full`. Prints one JSON line:
-per variant `ms`, `ns_per_slot` and `max_abs_err_vs_full` (null for a
-variant that only bounds a cost), for `full` and `grad` the bound, and the
-card's name and power limit.
+`ops.window_ncc` is timed back to back (`_timing.time_ms`: median of 20
+timings of 10 calls queued behind a device-side sleep, after warm-up): the
+warp body `full`, its switches `noload`, `noreduce`, `bare`, the first
+body `block` and `staged`, and the gradient form. The score-computing ones
+are held against `full`. Prints one JSON line: per variant `ms`,
+`ns_per_slot` and `max_abs_err_vs_full` (null for a variant that only
+bounds a cost), for `full` and `grad` the bound, and the card's name and
+power limit.
 """
 from __future__ import annotations
 

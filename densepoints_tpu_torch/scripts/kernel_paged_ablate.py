@@ -6,9 +6,11 @@ Stands for `scripts/kernel_paged_ablate.py` of the JAX package: the same
 inputs (`np.random.default_rng(0)`; 28,672 slots on 8 pages of 512 x 128,
 then 102,400 slots on 50 pages of 1216 x 128; k = 11 in 128 lanes; one page
 per step of 128 slots), here in f32 and per slot. Every variant of
-`ops.window_textures` is timed with CUDA events (median of 20 after
-warm-up) and the texture-computing ones are held against `full`. Prints one
-JSON line per shape: per variant `ms`, `ns_per_slot` and
+`ops.window_textures` is timed back to back (`_timing.time_ms`: median of
+20 timings of 10 calls queued behind a device-side sleep, after warm-up):
+the warp body `full`, its switches `noload`, `noreduce`, `bare`, the first
+body `block` and `staged`. The texture-computing ones are held against
+`full`. Prints one JSON line per shape: per variant `ms`, `ns_per_slot` and
 `max_abs_err_vs_full` (null for a variant that only bounds a cost), for
 `full` the bound, and the card's name and power limit.
 """

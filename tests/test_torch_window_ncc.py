@@ -40,9 +40,10 @@ def _bf16(x):
 
 
 def _inputs(rng, B=8, M=3, k=11, rows=128, W=256, outside=False):
-    """The script's inputs at a small size; with `outside`, some taps fall
-    out of the window."""
-    S = 128
+    """The script's inputs at a small size, k * k texels in rows of S
+    coordinates (128-lane multiples, as the script pads them); with
+    `outside`, some taps fall out of the window."""
+    S = -(-(k * k) // 128) * 128
     stack = _bf16(rng.uniform(0, 255, (rows, W)).astype(np.float32))
     grad = _bf16(np.concatenate(
         [stack[:, 1:] - stack[:, :-1], np.zeros((rows, 1), np.float32)], 1
@@ -123,10 +124,16 @@ def _dense_reference(stack, row0, x0, xs, ys, S, n_real):
     return cov / np.maximum(np.sqrt(var[:, :1]) * np.sqrt(var), 0.1)
 
 
+# Texture sides whose texel counts (1, 25, 121, 256) take each register
+# layout of the kernel's warp body: 1, 1, 4 and 8 texels per lane.
+TEXTURE_SIDES = [1, 5, 11, 16]
+
+
+@pytest.mark.parametrize("k", TEXTURE_SIDES, ids=lambda k: f"k{k}")
 @pytest.mark.parametrize("mode", ["onehot", "fused"])
 @pytest.mark.parametrize("outside", [False, True], ids=["inside", "outside"])
-def test_plain_matches_tpu_variant(rng, mode, outside):
-    stack, _, row0, x0, xs, ys, S, n = _inputs(rng, outside=outside)
+def test_plain_matches_tpu_variant(rng, mode, outside, k):
+    stack, _, row0, x0, xs, ys, S, n = _inputs(rng, k=k, outside=outside)
     M = row0.shape[1]
     body = _load_script("kernel_ablate").make_variant(
         M, S, n, WIN_H, WIN_W, 8, mode)
@@ -134,7 +141,9 @@ def test_plain_matches_tpu_variant(rng, mode, outside):
     got = _port_scores(stack, row0, x0, xs, ys, S, n)
     assert got.shape == want.shape and got.dtype == np.float32
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
-    np.testing.assert_allclose(got[:, 0], 1.0, atol=ATOL)
+    # A textured slot 0 scores 1 against itself; a single texel is flat,
+    # and the 0.1 clamp gives 0.
+    np.testing.assert_allclose(got[:, 0], 1.0 if n > 1 else 0.0, atol=ATOL)
 
 
 def test_plain_grad_matches_tpu_grad_variant(rng):
@@ -182,7 +191,7 @@ def test_flat_anchor_takes_the_denominator_clamp(rng):
 def test_variants_and_devices(rng):
     stack, grad, row0, x0, xs, ys, S, n = _inputs(rng, B=2, M=2)
     full = _port_scores(stack, row0, x0, xs, ys, S, n)
-    for variant in ("staged", "warp_slot"):  # same function on the CPU
+    for variant in ("staged", "block"):  # same function on the CPU
         np.testing.assert_array_equal(
             _port_scores(stack, row0, x0, xs, ys, S, n, variant=variant),
             full)
@@ -208,21 +217,59 @@ def test_cpu_tensors_take_the_plain_path(rng):
     assert window_ncc.KERNEL_LAUNCHES == launches
 
 
+@pytest.mark.parametrize(
+    "case", ["offsets_2_31", "strided_smem", "block_smem", "staged_smem"])
+def test_kernel_wrapper_validates_shapes(case):
+    """Shapes the kernel does not take raise `ValueError` before any launch,
+    so also here, where there is no card: tap offsets from a window's corner
+    past 32 bits, and shared memory past 48 KB (the warp body above 256
+    texels keeps slot 0 there; `block` and `staged` keep the textures and
+    the staged window)."""
+    B, M, n, R, W = 4, 3, 121, 300, 256
+    win_h, win_w, variant = WIN_H, WIN_W, "full"
+    match = "shared memory"
+    if case == "offsets_2_31":  # tensors with no storage: shapes only
+        R, W = 60, 2**26
+        match = "2\\^31"
+    elif case == "strided_smem":
+        n = 4000  # 4 warps x 4000 words
+    elif case == "block_smem":
+        n, variant = 6200, "block"  # 2 x 6200 words
+    else:
+        win_h, variant = 100, "staged"  # 2 x 121 + 100 x 128 words
+    meta = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+    launches = window_ncc.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        window_ncc.window_scores_cuda(
+            meta(R, W), meta(B, M).int(), meta(B, M).int(), meta(B, M, n),
+            meta(B, M, n), n, win_h, win_w, variant=variant)
+    assert window_ncc.KERNEL_LAUNCHES == launches
+
+
+# Texel counts of each register layout of the warp body (1, 1, 2, 4, 8 per
+# lane, the strided form), and at n = 121 coordinate rows of 123 floats,
+# which take the scalar coordinate loads.
+CARD_SHAPES = [(1, 1), (32, 32), (33, 33), (121, 128), (121, 123),
+               (256, 256), (300, 300)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,S", CARD_SHAPES, ids=lambda v: str(v))
 @pytest.mark.parametrize(
     "variant,with_grad",
-    [("full", False), ("staged", False), ("warp_slot", False),
-     ("full", True)],
+    [("full", False), ("staged", False), ("block", False), ("full", True)],
 )
-def test_kernel_matches_plain_on_card(rng, cuda_device, variant, with_grad):
+def test_kernel_matches_plain_on_card(rng, cuda_device, variant, with_grad,
+                                      n, S):
     """The CUDA kernel vs the plain version on the card, f32 both; B not a
-    multiple of 8, k = 16, taps outside the window: 1e-4 (fused
-    multiply-adds and the summation order)."""
-    stack, grad, row0, x0, xs, ys, _, _ = _inputs(
-        rng, B=37, M=5, k=11, outside=True)
-    S, n = 256, 256
-    xs = rng.uniform(-3, WIN_W + 3, (37, 5, S)).astype(np.float32)
-    ys = rng.uniform(-3, WIN_H + 3, (37, 5, S)).astype(np.float32)
+    multiple of 8, taps outside the window, windows over the stack's edges:
+    1e-4 (fused multiply-adds and the summation order)."""
+    B, M = 37, 5
+    stack, grad, _, _, _, _, _, _ = _inputs(rng, B=B, M=M)
+    row0 = rng.integers(-20, stack.shape[0] - 30, (B, M)).astype(np.int32)
+    x0 = rng.integers(-30, stack.shape[1] - 90, (B, M)).astype(np.int32)
+    xs = rng.uniform(-3, WIN_W + 3, (B, M, S)).astype(np.float32)
+    ys = rng.uniform(-3, WIN_H + 3, (B, M, S)).astype(np.float32)
     t = lambda a: torch.as_tensor(a, device=cuda_device)  # noqa: E731
     args = (t(stack), t(row0), t(x0), t(xs), t(ys), n, WIN_H, WIN_W)
     g = t(grad) if with_grad else None

@@ -43,8 +43,9 @@ def _bf16(x):
 
 
 def _inputs(rng, tbl, V=2, R=64, k=11, outside=False):
-    """The script's inputs at a small size, in the TPU layout."""
-    S = 128
+    """The script's inputs at a small size, in the TPU layout: k * k texels
+    in rows of S coordinates (128-lane multiples, as the script pads them)."""
+    S = -(-(k * k) // 128) * 128
     nsteps = len(tbl)
     pages = _bf16(rng.uniform(0, 255, (V, R, WIN_W)).astype(np.float32))
     row0 = (rng.integers(0, (R - WIN_H) // 8 + 1, (nsteps * 8, 16)) * 8
@@ -89,10 +90,16 @@ def _port_textures(pages, tbl, row0, xs, ys, S, k, **kw):
     ).numpy()
 
 
+# Texture sides whose texel counts (1, 25, 121, 256) take each register
+# layout of the kernel's warp body: 1, 1, 4 and 8 texels per lane.
+TEXTURE_SIDES = [1, 5, 11, 16]
+
+
+@pytest.mark.parametrize("k", TEXTURE_SIDES, ids=lambda k: f"k{k}")
 @pytest.mark.parametrize("mode", ["shipped", "fused"])
 @pytest.mark.parametrize("outside", [False, True], ids=["inside", "outside"])
-def test_plain_matches_tpu_kernel_on_live_rows(rng, mode, outside):
-    args = _inputs(rng, tbl=[1, -1, 0], outside=outside)
+def test_plain_matches_tpu_kernel_on_live_rows(rng, mode, outside, k):
+    args = _inputs(rng, tbl=[1, -1, 0], k=k, outside=outside)
     S, k = args[-2:]
     want = _tpu_textures(mode, *args)
     got = _port_textures(*args)
@@ -103,7 +110,8 @@ def test_plain_matches_tpu_kernel_on_live_rows(rng, mode, outside):
     assert err <= ATOL
     np.testing.assert_array_equal(want[live, k * k:], 0.0)  # padded lanes
     np.testing.assert_array_equal(got[~live], 0.0)
-    assert np.abs(got[live]).max() > 10.0  # real textures, not zeros
+    if k > 1:  # real textures, not zeros (one texel centred is 0)
+        assert np.abs(got[live]).max() > 10.0
     np.testing.assert_allclose(got[live].mean(axis=1), 0.0, atol=1e-3)
 
 
@@ -137,7 +145,7 @@ def test_window_past_the_page_reads_zeros(rng):
 def test_variants_and_devices(rng):
     args = _inputs(rng, tbl=[0])
     full = _port_textures(*args)
-    for variant in ("staged", "warp_slot"):  # same function on the CPU
+    for variant in ("staged", "block"):  # same function on the CPU
         np.testing.assert_array_equal(
             _port_textures(*args, variant=variant), full)
     with pytest.raises(ValueError, match="unknown variant"):
@@ -161,28 +169,70 @@ def test_cpu_tensors_take_the_plain_path(rng):
     assert window_textures.KERNEL_LAUNCHES == launches
 
 
+@pytest.mark.parametrize("case", ["offsets_2_31", "block_smem", "staged_smem"])
+def test_kernel_wrapper_validates_shapes(case):
+    """Shapes the kernel does not take raise `ValueError` before any launch,
+    so also here, where there is no card: tap offsets from a window's corner
+    past 32 bits, and shared memory past 48 KB for `block` (the texture)
+    and `staged` (the texture and the window). The warp body keeps nothing
+    in shared memory."""
+    N, n, P, R, W = 5, 121, 2, 300, WIN_W
+    win_h, variant = WIN_H, "full"
+    match = "shared memory"
+    if case == "offsets_2_31":  # tensors with no storage: shapes only
+        R, W = 4, 2**26
+        match = "2\\^31"
+    elif case == "block_smem":
+        n, variant = 12300, "block"
+    else:
+        win_h, variant = 100, "staged"  # 121 + 100 x 128 words
+    meta = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+    launches = window_textures.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        window_textures.window_centered_textures_cuda(
+            meta(P, R, W), meta(N).int(), meta(N).int(), meta(N, n),
+            meta(N, n), n, win_h, variant=variant)
+    assert window_textures.KERNEL_LAUNCHES == launches
+    # The warp body takes the same shapes where they only cost `block` and
+    # `staged` shared memory: it refuses them for want of a card alone.
+    if case != "offsets_2_31":
+        with pytest.raises(ValueError, match="CUDA"):
+            window_textures.window_centered_textures_cuda(
+                meta(P, R, W), meta(N).int(), meta(N).int(), meta(N, n),
+                meta(N, n), n, win_h)
+
+
+# Texel counts of each register layout of the warp body (1, 1, 2, 4, 8 per
+# lane, the strided form), and at n = 121 coordinate rows of 123 floats,
+# which take the scalar coordinate loads.
+CARD_SHAPES = [(1, 1), (32, 32), (33, 33), (121, 128), (121, 123),
+               (256, 256), (300, 300)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["full", "staged", "warp_slot"])
-def test_kernel_matches_plain_on_card(rng, cuda_device, variant):
+@pytest.mark.parametrize("n,S", CARD_SHAPES, ids=lambda v: str(v))
+@pytest.mark.parametrize("variant", ["full", "staged", "block"])
+def test_kernel_matches_plain_on_card(rng, cuda_device, variant, n, S):
     """The CUDA kernel vs the plain version on the card, f32 both; a slot
-    count that is no multiple of 4, k = 16, taps outside the window, dead
-    slots: 1e-3 grey levels (fused multiply-adds and the summation order on
-    values of +-128)."""
-    N, S, k = 1003, 256, 16
+    count that is no multiple of 4, taps outside the window, windows past
+    the page's ends, dead slots: 1e-3 grey levels (fused multiply-adds and
+    the summation order on values of +-128); dead slots exactly zero."""
+    N = 1003
     pages = rng.uniform(0, 255, (3, 200, WIN_W)).astype(np.float32)
-    page = rng.integers(-1, 3, N).astype(np.int32)
+    page = rng.integers(-1, 4, N).astype(np.int32)  # -1 and 3 are dead
     row0 = rng.integers(-10, 170, N).astype(np.int32)
     xs = rng.uniform(-3, WIN_W + 3, (N, S)).astype(np.float32)
     ys = rng.uniform(-3, WIN_H + 3, (N, S)).astype(np.float32)
     t = lambda a: torch.as_tensor(a, device=cuda_device)  # noqa: E731
-    args = (t(pages), t(page), t(row0), t(xs), t(ys), k * k, WIN_H)
+    args = (t(pages), t(page), t(row0), t(xs), t(ys), n, WIN_H)
     launches = window_textures.KERNEL_LAUNCHES
     got = window_textures.window_centered_textures(*args, variant=variant)
     want = window_textures.window_centered_textures_plain(*args)
     torch.cuda.synchronize()
     assert window_textures.KERNEL_LAUNCHES == launches + 1
     assert float((got - want).abs().max()) <= 1e-3
-    assert bool((got[t(page) < 0] == 0).all())
+    dead = (t(page) < 0) | (t(page) >= 3)
+    assert bool((got[dead] == 0).all())
 
 
 @pytest.mark.cuda
