@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-allview
     python3 chip_smoke.py --time-window
+    python3 chip_smoke.py --time-ncc
     python3 chip_smoke.py --profile-main
     python3 chip_smoke.py --kernel-resources
 
@@ -24,8 +25,13 @@ no result line:
      0 and 1), and a profile showing that the entry point runs one device
      kernel and nothing before it;
   4. row-wise NCC kernel vs plain: `ops.ncc` at (32768, 121) and
-     (262144, 256), maskless and masked (with empty-mask rows): within
-     1e-5, equal sentinels;
+     (262144, 256), maskless and masked (with empty-mask rows), timed back
+     to back and over rotated input sets (the record keeps the rotated
+     time, which may not fall under the bound); then untimed, at 20 row
+     lengths from L = 1 to 300
+     (every register tier of the group body and the strided body) and N =
+     1, 1001, 20001, with flat rows, empty-mask and single-entry rows and
+     rows of mean ~200 and spread ~2: within 1e-5, equal sentinels;
   5. slot kernel vs plain: `ops.warp_ncc` at the refine shape (8 slots,
      k = 11 and 16) and the DTU shape (4 anchor-pinned chunks of 16 slots,
      k = 16): scores within 1e-4, equal sentinel placement; the awkward
@@ -82,11 +88,18 @@ turns (parent, change, change, parent) within one job to compare them on
 one card. `--time-window` does the same for `full` of the two window
 kernels: K4 at the ablation program's shape and the awkward one, K5 at
 both of its program's shapes and the awkward one.
+`--time-ncc` does the same for the row-wise NCC kernel at (32768, 121) and
+(262144, 256), maskless and masked, each b2b time beside a rotated one
+(the calls take turns over at least 4 seeded input sets larger than twice
+the L2 cache together, so each call reads device memory) and the bound.
 `--profile-main` runs the CLI on the sphere scene under `torch.profiler`
 and prints one JSON line of its device ops, launches and stage seconds.
 `--kernel-resources` prints the registers, stack and spills `ptxas`
-reports for every kernel instance of the two warp + NCC kernels and the
-two window kernels.
+reports for every kernel instance of the two warp + NCC kernels, the
+row-wise NCC kernel (none of whose instances may spill) and the two window
+kernels, and the instruction count and a digest of the SASS of every
+function in the library the package built: run in two checkouts, or in one
+with another `ops/_build.py`, it says whether two builds made the same code.
 """
 from __future__ import annotations
 
@@ -327,19 +340,26 @@ def _kernel_args(fn, cams, images, pos, nrm, ref, k, **extra):
     return tuple(pool[name] for name in names)
 
 
-def _device_kernels(fn):
-    """Names of the device kernels one call of `fn` launches."""
+def _device_kernels(fn, attempts=3):
+    """Names of the device kernels one call of `fn` launches. A trace with
+    no device event at all (the profiler's tracer has handed one back on a
+    card that ran the call) is taken again, up to `attempts` times; it is
+    never read as a call that launched nothing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    names = []
-    for event in prof.key_averages():
-        if event.device_type == torch.autograd.DeviceType.CUDA:
-            names += [event.key] * event.count
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = []
+        for event in prof.key_averages():
+            if event.device_type == torch.autograd.DeviceType.CUDA:
+                names += [event.key] * event.count
+        if names:
+            break
     return names
 
 
@@ -410,13 +430,30 @@ def compare_kernel(label, cams, images, pos, nrm, ref, vis, k):
 
 
 def _time_runs(runs, reps=20):
-    """Times of named runs; the run named "kernel" (a kernel's wrapper
-    alone) is timed back to back, the others call by call."""
+    """Times of named runs; the runs named "kernel" and "b2b" (a kernel's
+    wrapper alone) are timed back to back, the others call by call."""
     for fn in runs.values():  # warm
         fn()
         fn()
-    return {name: _time_ms(fn, reps, KERNEL_BATCH if name == "kernel" else 1)
+    return {name: _time_ms(fn, reps,
+                           KERNEL_BATCH if name in ("kernel", "b2b") else 1)
             for name, fn in runs.items()}
+
+
+NCC_TIMED = ((32768, 121), (262144, 256))  # refine k=11; one DTU chunk
+
+
+def _ncc_inputs(N, L, masked, device, seed):
+    """Seeded (N, L) pairs: b correlated with a, and with `masked` a mask
+    of ~70% entries."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda: torch.rand((N, L), generator=gen, device=device)  # noqa: E731
+    a = rand() * 255.0
+    b = 0.6 * a + 0.4 * 255.0 * rand()
+    mask = (rand() > 0.3).to(torch.float32) if masked else None
+    return a, b, mask
 
 
 def compare_ncc_pairs(N, L, masked, device):
@@ -424,15 +461,11 @@ def compare_ncc_pairs(N, L, masked, device):
     import torch
 
     from densepoints_tpu_torch.ops import ncc
+    from densepoints_tpu_torch.scripts import _timing
 
-    gen = torch.Generator(device=device).manual_seed(N + L + int(masked))
-    rand = lambda: torch.rand((N, L), generator=gen, device=device)  # noqa: E731
-    a = rand() * 255.0
-    b = 0.6 * a + 0.4 * 255.0 * rand()
+    a, b, mask = _ncc_inputs(N, L, masked, device, seed=N + L + int(masked))
     a[2] = 7.0  # a flat row: the 0.1 clamp decides
-    mask = None
     if masked:
-        mask = (rand() > 0.3).to(torch.float32)
         mask[::1000] = 0.0  # rows with an empty mask: the -1 sentinel
     label = f"N={N} L={L} {'masked' if masked else 'maskless'}"
     got = ncc.ncc_pairs(a, b, mask)
@@ -447,16 +480,95 @@ def compare_ncc_pairs(N, L, masked, device):
               f"{label}: empty-mask rows are not exactly the -1 rows")
     err = float((got - want).abs().max())
     check(err <= NCC_ATOL, f"{label}: max |kernel - plain| {err:.3e}")
-    ms = _time_runs({
-        "kernel": lambda: ncc.ncc_pairs_cuda(a, b, mask),
-        "plain": lambda: ncc.ncc_pairs_plain(a, b, mask),
-    })
     inputs = (a, b) if mask is None else (a, b, mask)
     bound = _bound(_nbytes(*inputs, got), N * L * NCC_ELEMENT_FLOPS[masked])
+    # The kernel's time in the record is the rotated one: one set under the
+    # L2 cache's size is partly served from L2, under the DRAM bound.
+    sets = [(a, b, mask)] + [
+        _ncc_inputs(N, L, masked, device, seed=N + L + s)
+        for s in range(2, _timing.rotation(_nbytes(*inputs),
+                                           _timing.l2_bytes(device)) + 1)]
+    kernels = [lambda s=s: ncc.ncc_pairs_cuda(*s) for s in sets]
+    ms = _time_runs({"b2b": kernels[0],
+                     "plain": lambda: ncc.ncc_pairs_plain(a, b, mask)})
+    ms["kernel"] = _time_ms(kernels, 20, KERNEL_BATCH)
     print(f"[ncc_pairs] {label}: max_abs_err={err:.3e} "
-          f"kernel_ms={ms['kernel']:.4f} plain_ms={ms['plain']:.4f} "
+          f"kernel_ms={ms['kernel']:.4f} (rotated over {len(sets)} sets; "
+          f"b2b on one {ms['b2b']:.4f}) plain_ms={ms['plain']:.4f} "
           f"bound_ms={bound[0]:.5f} ({bound[1]})", flush=True)
+    check(ms["kernel"] >= bound[0],
+          f"{label}: rotated {ms['kernel']} ms under the bound {bound[0]}")
     return _result(err, ms, bound)
+
+
+# Row lengths of the untimed K3 shapes: each register tier of the group
+# body (G = 8 lanes a row holding C = 1 ... 8 elements each up to L = 64,
+# G = 16 with C = 5 ... 8 up to 128, G = 32 with C = 5 ... 8 up to 256;
+# ragged and full last chunks) and the strided body above 256; row counts
+# of one row, of no multiple of a block's rows, and of more rows than one
+# wave of warps (each warp walks several).
+NCC_AWKWARD_L = (1, 12, 17, 31, 32, 33, 45, 50, 64, 65, 90, 100, 121, 129,
+                 170, 200, 255, 256, 257, 300)
+NCC_AWKWARD_N = (1, 1001, 20001)
+
+
+def _ncc_awkward_pairs(N, L, masked, device):
+    """Seeded (N, L) pairs: correlated rows, and from N = 8 on a flat row
+    (the 0.1 clamp), an empty-mask row (-1), a single-entry row, and rows
+    of mean ~200 and spread ~2 (the variance a one-pass formula loses)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(7 * N + L + int(masked))
+    a = rng.uniform(0, 255, (N, L))
+    b = 0.6 * a + 0.4 * rng.uniform(0, 255, (N, L))
+    mask = rng.uniform(size=(N, L)) > 0.3 if masked else None
+    if N >= 8:
+        a[2] = 7.0
+        a[4:8] = 200.0 + rng.uniform(-2, 2, (4, L))
+        b[4:8] = 200.0 + 0.5 * (a[4:8] - 200.0) + rng.uniform(-1, 1, (4, L))
+        if masked:
+            mask[0] = False
+            mask[3] = False
+            mask[3, L // 2] = True
+            mask[::97] = False
+    t = lambda x: torch.as_tensor(  # noqa: E731
+        np.asarray(x, np.float32), device=device)
+    return t(a), t(b), None if mask is None else t(mask)
+
+
+def check_ncc_pairs_shapes(device):
+    """The row-wise NCC kernel vs plain at every (N, L) of NCC_AWKWARD_N x
+    NCC_AWKWARD_L, maskless and masked: within NCC_ATOL, the -1 rows exactly
+    the empty-mask rows; returns the largest error."""
+    import torch
+
+    from densepoints_tpu_torch.ops import ncc
+
+    worst, cases = 0.0, 0
+    for N in NCC_AWKWARD_N:
+        for L in NCC_AWKWARD_L:
+            for masked in (False, True):
+                a, b, mask = _ncc_awkward_pairs(N, L, masked, device)
+                want = ncc.ncc_pairs_plain(a, b, mask)
+                empty = (torch.zeros(N, dtype=torch.bool, device=device)
+                         if mask is None else mask.sum(1) == 0)
+                label = f"N={N} L={L} {'masked' if masked else 'maskless'}"
+                got = ncc.ncc_pairs_cuda(a, b, mask)
+                torch.cuda.synchronize()
+                check(got.shape == (N,) and bool(torch.isfinite(got).all()),
+                      f"{label}: shape or non-finite scores")
+                check(bool(((got == -1) == empty).all())
+                      and bool(((want == -1) == empty).all()),
+                      f"{label}: the -1 rows are not the empty-mask rows")
+                err = float((got - want).abs().max())
+                check(err <= NCC_ATOL,
+                      f"{label}: max |kernel - plain| {err:.3e}")
+                worst, cases = max(worst, err), cases + 1
+    print(f"[ncc_pairs] awkward: {cases} cases (N in {NCC_AWKWARD_N}, L in "
+          f"{NCC_AWKWARD_L}, maskless and masked), max_abs_err={worst:.3e}",
+          flush=True)
+    return {"max_abs_err": worst}
 
 
 def check_slot_kernel(label, cams, images, pos, nrm, ref, view_ids, ok, k,
@@ -835,10 +947,11 @@ def phase_kernels(device):
             f"awkward n={n}", _window_textures_awkward(device, n, S, seed=n),
             timed=False)
     torch.cuda.empty_cache()
-    for N, L in ((32768, 121), (262144, 256)):
+    for N, L in NCC_TIMED:
         for masked in (False, True):
             key = f"{N}x{L}_{'masked' if masked else 'maskless'}"
             results["ncc_pairs"][key] = compare_ncc_pairs(N, L, masked, device)
+    results["ncc_pairs"]["awkward"] = check_ncc_pairs_shapes(device)
     torch.cuda.empty_cache()
     refine = refine_inputs(device)
     (ids, ok), = _slot_tables("refine", refine[5], 8)  # V = 8: one chunk
@@ -1378,6 +1491,47 @@ def time_window(device):
     print(json.dumps(out), flush=True)
 
 
+def time_ncc(device):
+    """The `--time-ncc` mode: one JSON line of kernel-only times of the
+    row-wise NCC kernel at the two shapes of its path, maskless and masked
+    (three medians of 50 back-to-back timings), each beside a rotated
+    reading (the calls take turns over seeded input sets larger than twice
+    the L2 cache together, so each call reads device memory) and its
+    bound."""
+    import torch
+
+    from densepoints_tpu_torch.ops import ncc
+    from densepoints_tpu_torch.scripts import _timing
+
+    out = {"root": str(ROOT), "card": torch.cuda.get_device_name(0)}
+    l2 = _timing.l2_bytes(device)
+
+    def medians(fn):
+        return [round(_time_ms(fn, 50, KERNEL_BATCH), 5) for _ in range(3)]
+
+    for N, L in NCC_TIMED:
+        for masked in (False, True):
+            key = f"{N}x{L}_{'masked' if masked else 'maskless'}"
+            first = _ncc_inputs(N, L, masked, device, seed=0)
+            inputs = [t for t in first if t is not None]
+            sets = [first] + [
+                _ncc_inputs(N, L, masked, device, seed=s)
+                for s in range(1, _timing.rotation(_nbytes(*inputs), l2))]
+            got = ncc.ncc_pairs_cuda(*first)
+            out[f"{key}_bound_ms"] = round(_bound(
+                _nbytes(*inputs, got), N * L * NCC_ELEMENT_FLOPS[masked])[0],
+                5)
+            out[f"{key}_rotated_sets"] = len(sets)
+            fns = [lambda s=s: ncc.ncc_pairs_cuda(*s) for s in sets]
+            for fn in fns:
+                fn()
+            out[f"{key}_ms"] = medians(fns[0])
+            out[f"{key}_rotated_ms"] = medians(fns)
+            del first, inputs, sets, fns, got
+            torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
 def _ptxas_resources(source):
     """Registers, stack and spills of every kernel in `source` as `nvcc
     -Xptxas -v` reports them for sm_90a, keyed by the kernel's name and
@@ -1418,21 +1572,59 @@ def _ptxas_resources(source):
     return dict(zip(names, found.values()))
 
 
+def _library_sass():
+    """Instruction count and a digest of the SASS (addresses and encodings
+    left out) of every function in the library the package built, keyed by
+    its mangled name with the hash of its anonymous namespace taken out
+    (the hash differs from build to build) (`cuobjdump -sass`)."""
+    import hashlib
+    import re
+
+    from densepoints_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    proc = subprocess.run([str(cuobjdump), "-sass",
+                           str(_build.build_library())],
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr}")
+    code, name = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N_", m.group(1))
+            code[name] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if name and m:
+            code[name].append(m.group(1))
+    check(len(code) > 0, "cuobjdump -sass: no function in the library")
+    return {name: {"instructions": len(lines), "sha256": hashlib.sha256(
+        "\n".join(lines).encode()).hexdigest()[:16]}
+        for name, lines in code.items()}
+
+
 def kernel_resources(device):
     """The `--kernel-resources` mode: registers, spills and stack of every
-    kernel instance of the warp + NCC kernels and the two window kernels,
-    one JSON line."""
+    kernel instance of the warp + NCC kernels, the row-wise NCC kernel and
+    the two window kernels, and the SASS digest of every function of the
+    built library, one JSON line. Fails if an instance of the row-wise NCC
+    kernel spills."""
     out = {"root": str(ROOT)}
-    for name in ("allview_ncc", "slot_ncc", "window_ncc", "window_textures"):
+    for name in ("allview_ncc", "slot_ncc", "ncc_pairs", "window_ncc",
+                 "window_textures"):
         out[name] = _ptxas_resources(
             ROOT / "densepoints_tpu_torch" / "csrc" / f"{name}.cu")
+    spills = [k for k, v in out["ncc_pairs"].items()
+              if v["spill_store_bytes"] or v["spill_load_bytes"]]
+    check(not spills, f"row-wise NCC instances spill: {spills}")
+    out["sass"] = _library_sass()
     print(json.dumps(out), flush=True)
 
 
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     modes = {"--time-allview": time_allview, "--time-window": time_window,
-             "--profile-main": profile_main,
+             "--time-ncc": time_ncc, "--profile-main": profile_main,
              "--kernel-resources": kernel_resources}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         try:

@@ -1,11 +1,13 @@
 """`densify` command-line interface of the PyTorch port (single host).
 
     python -m densepoints_tpu_torch.cli -i scene.json -o cloud.ply \\
-        [-s settings.json] [--profile scan] [--ascii] [--device cuda]
+        [-s settings.json] [--profile scan] [--ascii] [--device cuda] \\
+        [--platform cpu|gpu|cuda] [--resume]
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 
@@ -17,7 +19,6 @@ from densepoints_tpu_torch.utils import log
 _NOT_PORTED = {
     "--mesh": "A.11",
     "--checkpoint-dir": "A.9",
-    "--resume": "A.9",
     "--debug-dir": "A.9",
     "--profile-dir": "A.9",
     "--distributed": "A.11",
@@ -45,7 +46,18 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--ascii", action="store_true", help="write ascii PLY")
     p.add_argument(
-        "--device", default="cuda", help="torch device to run on (cuda, cpu)"
+        "--device", help="torch device to run on (cuda, the default; cpu)"
+    )
+    p.add_argument(
+        "--platform",
+        help="the JAX CLI's backend flag: cpu means --device cpu, gpu or "
+        "cuda means --device cuda",
+    )
+    p.add_argument(
+        "--resume",
+        action="store_true",
+        help="resume from the latest checkpoint in --checkpoint-dir; "
+        "without one (not ported yet) a plain run, as in the JAX CLI",
     )
     p.add_argument(
         "--partition", choices=["replicated", "clustered"],
@@ -54,6 +66,31 @@ def build_parser() -> argparse.ArgumentParser:
         "whole image stack) is ported",
     )
     return p
+
+
+# --platform values and the device each means.
+_PLATFORM_DEVICES = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+
+
+def resolve_device(device: str | None, platform: str | None) -> str:
+    """The torch device of `--device` and `--platform`: `platform` maps to
+    a device, an explicit `device` of another kind is refused, and neither
+    means cuda. There is no fallback to the CPU."""
+    if platform is None:
+        return device or "cuda"
+    mapped = _PLATFORM_DEVICES.get(platform)
+    if mapped is None:
+        raise ValueError(
+            f"--platform {platform!r}: the port runs on "
+            f"{' or '.join(_PLATFORM_DEVICES)}; choose the torch device "
+            "with --device (cpu or cuda)"
+        )
+    if device is not None and device.split(":", 1)[0] != mapped:
+        raise ValueError(
+            f"--platform {platform} means --device {mapped}, but --device "
+            f"{device} was given"
+        )
+    return device or mapped
 
 
 def main(argv=None) -> int:
@@ -66,6 +103,7 @@ def main(argv=None) -> int:
                 f"(ROADMAP {_NOT_PORTED[flag]})"
             )
     args = build_parser().parse_args(argv)
+    device = resolve_device(args.device, args.platform)
     if args.partition == "clustered":
         raise NotImplementedError(
             "--partition clustered is not ported to densepoints_tpu_torch "
@@ -78,13 +116,16 @@ def main(argv=None) -> int:
     if args.profile:
         settings["profile"] = args.profile
     config = load_config(settings) if settings else PipelineConfig()
+    if args.resume:
+        config = config.replace(
+            runtime=dataclasses.replace(config.runtime, resume=True))
 
     from densepoints_tpu_torch.io.scene import load_scene
     from densepoints_tpu_torch.pmvs import pipeline
 
-    scene = load_scene(args.input, device=args.device)
+    scene = load_scene(args.input, device=device)
     log.info("scene: %d views", scene.cameras.num_views)
-    result = pipeline.densify(scene, config, device=args.device)
+    result = pipeline.densify(scene, config, device=device)
     result.save_ply(args.output, binary=not args.ascii)
     log.info("wrote %d points to %s", len(result.positions), args.output)
     return 0

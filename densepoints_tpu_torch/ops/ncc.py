@@ -5,8 +5,10 @@ cov / max(sigma_a * sigma_b, 0.1); with a mask the statistics see only its
 entries and a row whose mask is empty gets -1 (`core.scores.ncc_score`).
 
 On CUDA tensors the wrapper launches the hand-written kernel in
-`csrc/ncc_pairs.cu` (one warp per row) or raises. On CPU tensors it runs
-`ncc_pairs_plain`. `KERNEL_LAUNCHES` and `PLAIN_CALLS` count which ran.
+`csrc/ncc_pairs.cu` or raises. On CPU tensors it runs `ncc_pairs_plain`.
+`KERNEL_LAUNCHES` and `PLAIN_CALLS` count which ran. The kernel holds a
+row in the registers of a group of 8, 16 or 32 lanes for L <= 256 and
+loops over it with a warp above (see the source).
 """
 from __future__ import annotations
 

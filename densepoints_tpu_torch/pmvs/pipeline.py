@@ -55,12 +55,14 @@ class DensifyResult:
 def check_supported(config: PipelineConfig):
     """Raise NotImplementedError for pipeline branches the port lacks (an
     unknown detector, matcher, pre-screen mode or sampling route raises
-    ValueError in its own stage module)."""
+    ValueError in its own stage module). `runtime.resume` without a
+    checkpoint directory is a plain run, as in the JAX package, which
+    resumes only when both are set."""
     unsupported = [
         (config.ba.enable, "ba.enable", "A.11"),
         (config.multiscale.levels > 1, "multiscale.levels > 1", "A.11"),
-        (bool(config.runtime.checkpoint_dir) or config.runtime.resume,
-         "runtime.checkpoint_dir / resume", "A.9"),
+        (bool(config.runtime.checkpoint_dir), "runtime.checkpoint_dir",
+         "A.9"),
         (bool(config.runtime.debug_dir), "runtime.debug_dir", "A.9"),
         (bool(config.runtime.profile_dir), "runtime.profile_dir", "A.9"),
     ]

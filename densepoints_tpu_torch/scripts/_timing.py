@@ -37,9 +37,21 @@ def time_ms(fn, reps: int = 20, warm: int = 3, batch: int = 10) -> float:
     device-side sleep, so that the card runs them back to back and a kernel
     shorter than the host's time to launch it (~0.05 ms through a Python
     wrapper) is timed and not the host; `batch` = 1 times one call between
-    two events, as a caller makes it."""
+    two events, as a caller makes it.
+
+    `fn` may be a list of callables, each on its own inputs: the calls take
+    them in turn, across timings too, so that with input sets larger than
+    the L2 cache together (`rotation`) every call reads device memory."""
+    fns = list(fn) if isinstance(fn, (list, tuple)) else [fn]
+    calls = 0
+
+    def call():
+        nonlocal calls
+        fns[calls % len(fns)]()
+        calls += 1
+
     for _ in range(warm):
-        fn()
+        call()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -48,12 +60,24 @@ def time_ms(fn, reps: int = 20, warm: int = 3, batch: int = 10) -> float:
             torch.cuda._sleep(200_000 * batch)  # ~0.1 ms per queued call
         start.record()
         for _ in range(batch):
-            fn()
+            call()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / batch)
     times.sort()
     return times[len(times) // 2]
+
+
+def l2_bytes(device) -> int:
+    """The L2 cache of `device`'s card, as the card reports it."""
+    return torch.cuda.get_device_properties(device).L2_cache_size
+
+
+def rotation(set_bytes: int, l2: int) -> int:
+    """How many input sets of `set_bytes` a rotated timing takes turns over:
+    at least 4, and more than twice the L2 cache of `l2` bytes together, so
+    that a set has left L2 before its next turn."""
+    return max(4, 2 * l2 // set_bytes + 1)
 
 
 def bound(nbytes: float, flops: float):

@@ -19,11 +19,20 @@ from densepoints_tpu_torch.ops import ncc
 from tests.torch_port_util import cuda_device  # noqa: F401
 
 ATOL = 1e-5
+# Each register tier of the CUDA kernel's group body (G = 8 lanes a row
+# holding C = 1 ... 8 elements each up to L = 64, G = 16 with C = 5 ... 8 up
+# to 128, G = 32 with C = 5 ... 8 up to 256; ragged and full last chunks)
+# and its strided body above 256.
+LENGTHS = [1, 12, 17, 31, 32, 33, 45, 50, 64, 65, 90, 100, 121, 129, 170,
+           200, 255, 256, 257, 300]
 
 
 def _pairs(rng, N, L, masked):
     a = rng.uniform(0, 255, (N, L)).astype(np.float32)
     b = (0.6 * a + 0.4 * rng.uniform(0, 255, (N, L))).astype(np.float32)
+    if N < 4:
+        mask = rng.uniform(size=(N, L)) > 0.3 if masked else None
+        return a, b, mask
     b[1] = rng.uniform(0, 255, L)  # an uncorrelated row
     a[2] = 7.0  # a flat row: the 0.1 clamp decides
     mask = None
@@ -31,7 +40,7 @@ def _pairs(rng, N, L, masked):
         mask = rng.uniform(size=(N, L)) > 0.3
         mask[0] = False  # an empty mask: the -1 sentinel
         mask[3] = False
-        mask[3, 5] = True  # a single entry
+        mask[3, L // 2] = True  # a single entry
     return a, b, mask
 
 
@@ -46,7 +55,7 @@ def _jax(fn, a, b, mask, **kw):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("L", [121, 256])
+@pytest.mark.parametrize("L", LENGTHS)
 def test_ncc_pairs_matches_ncc_score(rng, L, masked):
     a, b, mask = _pairs(rng, 40, L, masked)
     got = _torch(ncc.ncc_pairs, a, b, mask)
@@ -58,13 +67,33 @@ def test_ncc_pairs_matches_ncc_score(rng, L, masked):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("L", [121, 256])
+@pytest.mark.parametrize("L", LENGTHS)
 def test_ncc_pairs_matches_pallas_kernel(rng, L, masked):
     a, b, mask = _pairs(rng, 40, L, masked)
     got = _torch(ncc.ncc_pairs, a, b, mask)
     want = _jax(ncc_pairs_pallas, a, b, mask, interpret=True)
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
     np.testing.assert_array_equal(got == -1.0, want == -1.0)
+
+
+def _bright_flat_pairs(rng, N, L):
+    """Rows of mean ~200 and spread ~2: variances ~1.3, above the 0.1
+    clamp, where a one-pass sum of squares (~1e7 at L = 256, an f32 ulp of
+    ~1) would lose them; the statistics are taken in two passes."""
+    a = (200.0 + rng.uniform(-2, 2, (N, L))).astype(np.float32)
+    b = (200.0 + 0.5 * (a - 200.0) + rng.uniform(-1, 1, (N, L))).astype(
+        np.float32)
+    return a, b
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_ncc_pairs_two_pass_on_bright_flat_rows(rng, masked):
+    a, b = _bright_flat_pairs(rng, 40, 256)
+    mask = rng.uniform(size=a.shape) > 0.3 if masked else None
+    got = _torch(ncc.ncc_pairs, a, b, mask)
+    want = _jax(jax_scores.ncc_score, a, b, mask)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    assert (got > 0.3).all()  # correlated, and not flattened by the clamp
 
 
 def test_ncc_pairs_golden_value():
@@ -122,15 +151,21 @@ def test_kernel_wrapper_refuses_cpu_tensors(rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("L", [121, 256])
-def test_kernel_matches_plain_on_card(rng, cuda_device, L, masked):
-    """The CUDA kernel vs the plain version on the card (f32 both: 1e-5)."""
-    a, b, mask = _pairs(rng, 3000, L, masked)
-    t = lambda x: None if x is None else torch.as_tensor(x, device=cuda_device)  # noqa: E731
+@pytest.mark.parametrize("N", [1, 3001, 20001])
+@pytest.mark.parametrize("L", LENGTHS)
+def test_kernel_matches_plain_on_card(rng, cuda_device, L, N, masked):
+    """The CUDA kernel vs the plain version on the card (f32 both: 1e-5),
+    with equal -1 placement; N = 20001 is more rows than one wave of warps,
+    so each warp walks several."""
+    a, b, mask = _pairs(rng, N, L, masked)
+    if N > 8:
+        a[4:8], b[4:8] = _bright_flat_pairs(rng, 4, L)
+    t = lambda x: None if x is None else torch.as_tensor(  # noqa: E731
+        x, dtype=torch.float32, device=cuda_device)
+    want = ncc.ncc_pairs_plain(t(a), t(b), t(mask))
     launches = ncc.KERNEL_LAUNCHES
     got = ncc.ncc_pairs(t(a), t(b), t(mask))
-    want = ncc.ncc_pairs_plain(t(a), t(b), t(mask))
-    torch.cuda.synchronize()
     assert ncc.KERNEL_LAUNCHES == launches + 1
+    torch.cuda.synchronize()
     assert torch.equal(got == -1, want == -1)
     assert float((got - want).abs().max()) <= ATOL

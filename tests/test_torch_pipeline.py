@@ -25,6 +25,7 @@ from densepoints_tpu_torch.config import (
     MultiscaleConfig,
     OptimizeConfig,
     PipelineConfig,
+    RuntimeConfig,
 )
 from densepoints_tpu_torch.io import load_scene, read_ply
 from densepoints_tpu_torch.ops import allview_ncc
@@ -103,18 +104,85 @@ def test_ply_round_trip(tmp_path, port_result):
     assert port_result.colors.max() > 0
 
 
-def test_cli_main(tmp_path, plane_scene):
+def _cli_cloud(tmp_path, plane_scene, flags):
+    """Positions of the CLI's cloud of the plane scene at quick settings."""
     settings = tmp_path / "settings.json"
     settings.write_text(json.dumps({
         "matching": {"max_keypoints_per_view": 256},
         "optimize": {"max_iterations": 30},
         "expand": {"max_rounds": 1},
     }))
-    out = tmp_path / "out.ply"
+    out = tmp_path / f"out{'_'.join(flags)}.ply"
     rc = cli.main(["-i", str(plane_scene), "-s", str(settings), "-o",
-                   str(out), "--ascii", "--device", "cpu"])
+                   str(out), "--ascii", *flags])
     assert rc == 0
-    assert len(read_ply(out)["positions"]) > 10
+    return read_ply(out)["positions"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--device", "cpu"],
+    ["--platform", "cpu"],
+    ["--platform", "cpu", "--device", "cpu", "--resume"],
+], ids=["device", "platform", "platform_device_resume"])
+def test_cli_main(tmp_path, plane_scene, flags):
+    """The JAX CLI's `--platform cpu` is `--device cpu`; `--resume` without
+    `--checkpoint-dir` is a plain run (the JAX package resumes only when
+    both are set, `densepoints_tpu/pmvs/pipeline.py:161`)."""
+    positions = _cli_cloud(tmp_path, plane_scene, flags)
+    assert len(positions) > 10
+    if flags != ["--device", "cpu"]:
+        want = _cli_cloud(tmp_path, plane_scene, ["--device", "cpu"])
+        np.testing.assert_array_equal(positions, want)
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--platform", "tpu"], "--device"),
+    (["--platform", "cpu", "--device", "cuda"], "--device cuda"),
+    (["--platform", "gpu", "--device", "cpu"], "--device cpu"),
+], ids=["tpu", "cpu_vs_cuda", "gpu_vs_cpu"])
+def test_cli_platform_refusals(plane_scene, flags, match):
+    """A platform the port has no device for, or a --device that
+    contradicts --platform, is refused before any work, naming --device."""
+    with pytest.raises(ValueError, match=match):
+        cli.main(["-i", str(plane_scene), *flags])
+
+
+def test_cli_resume_flag_sets_runtime_resume(plane_scene, port_result,
+                                              monkeypatch, tmp_path):
+    from densepoints_tpu_torch.pmvs import pipeline
+
+    assert cli.build_parser().parse_args(["-i", "s.json", "--resume"]).resume
+    seen = {}
+
+    def fake_densify(scene, config, device):
+        seen.update(config=config, device=device)
+        return port_result
+
+    monkeypatch.setattr(pipeline, "densify", fake_densify)
+    rc = cli.main(["-i", str(plane_scene), "-o", str(tmp_path / "c.ply"),
+                   "--resume", "--platform", "cpu"])
+    assert rc == 0
+    assert seen["config"].runtime.resume and seen["device"] == "cpu"
+
+
+def test_resume_without_checkpoint_dir_is_a_plain_run(plane_scene,
+                                                      port_result):
+    """The JAX package resumes only when `runtime.resume` and
+    `runtime.checkpoint_dir` are both set
+    (`densepoints_tpu/pmvs/pipeline.py:161`); with `resume` alone it runs a
+    plain densify, and so does the port: the same cloud as without it."""
+    config = _config().replace(runtime=RuntimeConfig(resume=True))
+    result = densify(load_scene(plane_scene, device="cpu"), config,
+                     device="cpu")
+    np.testing.assert_array_equal(result.positions, port_result.positions)
+    np.testing.assert_array_equal(result.normals, port_result.normals)
+
+
+def test_checkpoint_dir_still_raises(plane_scene):
+    config = _config().replace(
+        runtime=RuntimeConfig(checkpoint_dir="ckpt", resume=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        densify(load_scene(plane_scene, device="cpu"), config, device="cpu")
 
 
 _QUICK = {"max_keypoints_per_view": 256}

@@ -1,11 +1,12 @@
 """The timer and the bounds of the port's measurement programs
 (`densepoints_tpu_torch/scripts/_timing.py`).
 
-The bounds are arithmetic on shapes and run here. The timer needs a card:
-its test is marked `cuda`, and holds a back-to-back reading (10 calls queued
-behind a device-side sleep) below the reading of one call between two
-events, for a kernel of about 0.01 ms, shorter than the host's time to
-launch it.
+The bounds and the number of rotated input sets are arithmetic on shapes
+and a given L2 size, and run here. The timer needs a card: its tests are
+marked `cuda`; they hold a back-to-back reading (10 calls queued behind a device-side sleep)
+below the reading of one call between two events, for a kernel of about
+0.01 ms, shorter than the host's time to launch it, and check that a list
+of calls is taken in turn.
 """
 import pytest
 import torch
@@ -41,9 +42,35 @@ def test_window_bound_reads_the_image_no_more_than_it_must(
     assert ms == pytest.approx(1e3 * want / _timing.HBM_BYTES_PER_S)
 
 
+H100_L2 = 50 * 2**20  # the L2 an H100 SXM reports
+A100_L2 = 40 * 2**20  # an A100's
+
+
+@pytest.mark.parametrize("set_bytes,l2,sets", [
+    (31_719_424, H100_L2, 4),  # (32768, 121) pairs: 127 MB in 4 sets
+    (10_000_000, H100_L2, 11),  # 110 MB in 11 sets
+    (537_919_488, H100_L2, 4),  # (262144, 256) pairs: one set exceeds L2
+    (10_000_000, A100_L2, 9),  # a smaller L2 takes fewer sets
+    (31_719_424, 4 * H100_L2, 14),  # a larger one more
+])
+def test_rotation_takes_turns_over_more_than_twice_the_l2(set_bytes, l2,
+                                                          sets):
+    assert _timing.rotation(set_bytes, l2) == sets
+    assert sets * set_bytes > 2 * l2 and sets >= 4
+
+
 def test_timing_refuses_the_cpu():
     with pytest.raises(SystemExit, match="CUDA card"):
         _timing.cuda_device("cpu")
+
+
+@pytest.mark.cuda
+def test_rotated_calls_take_turns(cuda_device):
+    """A list of calls is taken in turn, across timings too."""
+    seen = []
+    fns = [lambda i=i: seen.append(i) for i in range(3)]
+    _timing.time_ms(fns, reps=2, warm=1, batch=4)
+    assert seen == [i % 3 for i in range(9)]
 
 
 @pytest.mark.cuda
