@@ -63,7 +63,25 @@ no result line:
   10. main path: `densepoints_tpu_torch.cli.main` on a 12-view 512 x 384
      textured-sphere scene written as PNG files + scene JSON, with every
      launch counter set to 0 just before; checks the counters, the PLY, the
-     patch count and the radial error against the analytic sphere.
+     patch count and the radial error against the analytic sphere;
+  11. the rest of the pipeline, each a CLI run on the sphere with every
+     counter set to 0 just before it, K1 launched and no plain call, at
+     least 1000 patches and (but for BA) a median radial error under 1.5:
+     `[ckpt]` a run with `--checkpoint-dir` writes its three stage files,
+     and `--resume` from `seeds_optimized` alone gives the same patch
+     count and positions within 1e-4 (the largest difference printed);
+     `[multiscale]` two pyramid levels, seconds per level; `[ba]`
+     `ba.enable` on the scene with the P of views 1-11 turned by +-0.002
+     rad and on the exact scene: the seeds' RMSE falls, comes within 10%
+     of what BA reaches from the exact cameras, and the two clouds' radial
+     errors lie within 1.5 of each other; `[mesh]` `--mesh`, vertices and
+     faces, finite, median radial error under a voxel, TSDF seconds;
+     `[debug]` / `[profile]` one run with `--debug-dir` (seed and final
+     clouds, 12 occupancy images) and `--profile-dir` (a trace naming
+     K1's kernel); `[native]` the native runtime built and loaded, the
+     main path's seed seconds with it; `[metrics]` accuracy /
+     completeness of phase 10's cloud against 20,000 samples of the
+     sphere at threshold 1.5.
 Each kernel's time stands beside its bound: the larger of the bytes it must
 move (every input read once, every output written once; of the image stack
 no more than the 4 taps of every texel this run's data samples) over
@@ -1162,8 +1180,11 @@ def phase_ablation_path():
     return launches
 
 
-def write_sphere_scene(directory: Path):
-    """bench.py's e2e scene as PNG images + a scene JSON; returns its path."""
+def write_sphere_scene(directory: Path, turn: float = 0.0):
+    """bench.py's e2e scene as PNG images + a scene JSON; returns its path.
+    With `turn`, the P of views 1, 2, ... is turned about the world's z
+    axis by +turn, -turn, ... radians, as if the calibration were noisy
+    (the perturbation of `tests/pmvs/test_ba_integration.py`)."""
     import numpy as np
     from PIL import Image
 
@@ -1180,7 +1201,13 @@ def write_sphere_scene(directory: Path):
         name = f"view_{v:02d}.png"
         img = sc.render(v).clip(0, 255).astype(np.uint8)
         Image.fromarray(img).save(directory / name)
-        views.append({"filename": name, "projectionMatrix": sc.P[v].tolist()})
+        P = sc.P[v]
+        if v and turn:
+            a = turn if v % 2 else -turn
+            Rz = np.eye(4)
+            Rz[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+            P = P @ Rz
+        views.append({"filename": name, "projectionMatrix": P.tolist()})
     path = directory / "scene.json"
     path.write_text(json.dumps({"imagesPath": str(directory),
                                 "views": views}))
@@ -1195,10 +1222,11 @@ SPHERE_SETTINGS = {
 }
 
 
-def _cli_on_sphere(device: str, settings: dict):
-    """`cli.main` on the sphere scene with `settings`, every launch counter
-    set to 0 just before; returns (positions, metrics, wall seconds,
-    launches, plain calls)."""
+def _cli_on_sphere(device: str, settings: dict, flags=(), scene_path=None):
+    """`cli.main` on the sphere scene (written anew unless `scene_path` is
+    given) with `settings` and extra `flags`, every launch counter set to 0
+    just before; returns (positions, metrics, wall seconds, launches, plain
+    calls)."""
     import numpy as np
 
     from densepoints_tpu_torch import cli
@@ -1207,7 +1235,7 @@ def _cli_on_sphere(device: str, settings: dict):
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
-        scene_path = write_sphere_scene(tmp)
+        scene_path = scene_path or write_sphere_scene(tmp)
         settings_path = tmp / "settings.json"
         settings_path.write_text(json.dumps(settings))
         out = tmp / "cloud.ply"
@@ -1223,7 +1251,7 @@ def _cli_on_sphere(device: str, settings: dict):
         t0 = time.perf_counter()
         try:
             rc = cli.main(["-i", str(scene_path), "-s", str(settings_path),
-                           "-o", str(out), "--device", device])
+                           "-o", str(out), "--device", device, *flags])
         finally:
             pipeline.densify = densify
         wall = time.perf_counter() - t0
@@ -1245,7 +1273,8 @@ def _radial_error(pts):
 
 
 def phase_main_path(device: str):
-    """The CLI on the sphere scene; returns (launches, stage seconds)."""
+    """The CLI on the sphere scene; returns (launches, stage seconds,
+    positions)."""
     pts, metrics, wall, all_launches, all_plain = _cli_on_sphere(
         device, SPHERE_SETTINGS)
     launches = all_launches["allview_ncc"]
@@ -1265,7 +1294,7 @@ def phase_main_path(device: str):
     check(len(pts) >= 1000, f"only {len(pts)} patches (need >= 1000)")
     check(med < 0.01 * SPHERE_RADIUS,
           f"median radial error {med:.4f} >= {0.01 * SPHERE_RADIUS}")
-    return launches, metrics.times
+    return launches, metrics.times, pts
 
 
 def phase_seed_variants(device: str):
@@ -1333,6 +1362,212 @@ def phase_seed_variants(device: str):
     check(len(pts) >= 1000, f"pre-screen run: only {len(pts)} patches")
     check(med < 0.01 * SPHERE_RADIUS,
           f"pre-screen run: median radial error {med:.4f}")
+
+
+def _sphere_run(label, device, settings, flags=(), scene_path=None,
+                radial_limit=0.01 * SPHERE_RADIUS):
+    """One CLI run of phase 11: K1 launched and no plain call, at least
+    1000 patches, a median radial error under `radial_limit` (unless None);
+    prints and returns (positions, metrics)."""
+    pts, metrics, wall, launches, plain = _cli_on_sphere(
+        device, settings, flags, scene_path)
+    med = _radial_error(pts)
+    print(f"[{label}] cli wall {wall:.2f} s; stage seconds: "
+          + " ".join(f"{k}={v:.3f}" for k, v in metrics.times.items()),
+          flush=True)
+    print(f"[{label}] allview_ncc launches {launches['allview_ncc']}, "
+          f"plain calls {sum(plain.values())}, {len(pts)} patches, median "
+          f"radial error {med:.4f}", flush=True)
+    check(launches["allview_ncc"] > 0, f"{label}: K1 was never launched")
+    check(sum(plain.values()) == 0, f"{label}: plain paths {plain}")
+    check(len(pts) >= 1000, f"{label}: only {len(pts)} patches")
+    check(radial_limit is None or med < radial_limit,
+          f"{label}: median radial error {med:.4f}")
+    return pts, metrics
+
+
+def _seed_rmse(scene_path, settings, device):
+    """Reprojection RMSE of the scene's seed tracks against its own cameras
+    (the pipeline's bundle adjustment with no iteration), on the card."""
+    import dataclasses
+
+    import torch
+
+    from densepoints_tpu_torch.config import load_config
+    from densepoints_tpu_torch.io import load_scene
+    from densepoints_tpu_torch.pmvs.pipeline import _bundle_adjust
+    from densepoints_tpu_torch.pmvs.seed import generate_seed_points
+
+    config = load_config(settings)
+    scene = load_scene(scene_path, device=device)
+    images = torch.as_tensor(scene.images, dtype=torch.float32, device=device)
+    points, obs, mask = generate_seed_points(images, scene.cameras,
+                                             config.matching)
+    untouched = dataclasses.replace(config.ba, max_outer_iterations=0)
+    return _bundle_adjust(scene.cameras, points, obs, mask, untouched)[2]
+
+
+def _with_settings(**sections):
+    settings = json.loads(json.dumps(SPHERE_SETTINGS))
+    for name, values in sections.items():
+        settings.setdefault(name, {}).update(values)
+    return settings
+
+
+def phase_rest_of_pipeline(device, main_pts, main_times):
+    """Phase 11: checkpoint / resume, multi-scale, bundle adjustment, the
+    mesh, debug and profile dumps, the native runtime and the cloud metrics,
+    each CLI run on the sphere with every counter set to 0 just before."""
+    import numpy as np
+    import torch
+
+    from densepoints_tpu_torch import native
+    from densepoints_tpu_torch.config import SurfaceConfig
+    from densepoints_tpu_torch.io.ply import read_ply
+    from densepoints_tpu_torch.surface import tsdf
+    from densepoints_tpu_torch.utils.metrics import accuracy_completeness
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "scene").mkdir()
+        scene = write_sphere_scene(tmp / "scene")
+
+        # Checkpoints, then a resume from the first stage.
+        ckpt = tmp / "ckpt"
+        pts, _ = _sphere_run("ckpt", device, SPHERE_SETTINGS,
+                                ["--checkpoint-dir", str(ckpt)], scene)
+        stages = sorted(p.stem for p in ckpt.glob("*.npz"))
+        check(stages == ["expanded", "final", "seeds_optimized"],
+              f"checkpoint stages {stages}")
+        for stage in ("expanded", "final"):
+            (ckpt / f"{stage}.npz").unlink()
+        resumed, metrics = _sphere_run(
+            "ckpt", device, SPHERE_SETTINGS,
+            ["--checkpoint-dir", str(ckpt), "--resume"], scene)
+        check("seed" not in metrics.times, "the resumed run seeded anew")
+        check(len(resumed) == len(pts),
+              f"resumed {len(resumed)} patches, uninterrupted {len(pts)}")
+        diff = float(np.abs(resumed - pts).max()) if len(pts) else 0.0
+        print(f"[ckpt] resumed from seeds_optimized: {len(resumed)} patches "
+              f"as uninterrupted, max |position difference| {diff:.3e}, "
+              f"bitwise {np.array_equal(resumed, pts)}", flush=True)
+        check(diff <= 1e-4, f"resumed cloud differs by {diff:.3e}")
+
+        # Two pyramid levels: K1 at 256 x 192, then at 512 x 384.
+        _, metrics = _sphere_run(
+            "multiscale", device, _with_settings(multiscale={"levels": 2}),
+            (), scene)
+        levels = {k: v for k, v in metrics.times.items()
+                  if k.startswith("multiscale_level_")}
+        print("[multiscale] seconds per level: " + " ".join(
+            f"{k[len('multiscale_'):]}={v:.3f}" for k, v in levels.items()),
+            flush=True)
+        check(sorted(levels) == ["multiscale_level_0", "multiscale_level_1"],
+              f"levels timed: {sorted(levels)}")
+
+        # Bundle adjustment of a calibration turned by +-0.002 rad, held
+        # to bundle adjustment of the exact calibration. Both packages' BA
+        # leaves the RMSE of this scene's seeds above a pixel (it counts
+        # mismatched tracks, which Huber weights do not silence) and moves
+        # the cloud off the sphere by a few units (PERF.md, PR 7), so the
+        # exact run is the yardstick, not the plain run's cloud.
+        (tmp / "turned").mkdir()
+        turned = write_sphere_scene(tmp / "turned", turn=0.002)
+        ba_settings = _with_settings(ba={"enable": True})
+        runs = {}
+        for name, path in (("exact", scene), ("turned", turned)):
+            pts, metrics = _sphere_run(f"ba {name}", device, ba_settings,
+                                          (), path, radial_limit=None)
+            runs[name] = (metrics.counters["ba_rmse_px"], _radial_error(pts),
+                          metrics.times["bundle_adjust"])
+        before = _seed_rmse(turned, ba_settings, device)
+        (rmse, radial, secs), (rmse_x, radial_x, _) = (runs["turned"],
+                                                       runs["exact"])
+        print(f"[ba] turned calibration: seeds' reprojection RMSE {before:.4f}"
+              f" px before BA, {rmse:.4f} px after ({secs:.3f} s), cloud's "
+              f"median radial error {radial:.4f}; exact calibration: "
+              f"{rmse_x:.4f} px after BA, radial error {radial_x:.4f}",
+              flush=True)
+        check(rmse < before, f"BA left the RMSE at {rmse:.4f} px")
+        check(rmse <= 1.1 * rmse_x,
+              f"BA RMSE {rmse:.4f} px, from exact cameras {rmse_x:.4f} px")
+        check(abs(radial - radial_x) < 0.01 * SPHERE_RADIUS,
+              f"radial error {radial:.4f} after BA of the turned calibration,"
+              f" {radial_x:.4f} after BA of the exact one")
+
+        # The mesh of the plain run; its two halves timed apart.
+        timed = {}
+
+        def timing(name, fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                timed[name] = time.perf_counter() - t0
+                return out
+            return run
+
+        mesh_path = tmp / "mesh.ply"
+        saved = tsdf.extract_surface, tsdf.fuse_tsdf
+        tsdf.extract_surface = timing("extract_surface", saved[0])
+        tsdf.fuse_tsdf = timing("fuse_tsdf", saved[1])
+        try:
+            pts, _ = _sphere_run("mesh", device, SPHERE_SETTINGS,
+                                    ["--mesh", str(mesh_path)], scene)
+        finally:
+            tsdf.extract_surface, tsdf.fuse_tsdf = saved
+        head = mesh_path.read_bytes()[:400].decode("ascii", "replace")
+        faces = int(head.split("element face ")[1].split()[0])
+        verts = read_ply(mesh_path)["positions"]
+        # extract_surface's voxel: the cloud's largest extent, padded by 5%
+        # on each side, over R - 1.
+        R = SurfaceConfig().voxel_resolution
+        voxel = float(np.ptp(pts, axis=0).max()) * 1.1 / (R - 1)
+        med = _radial_error(verts)
+        print(f"[mesh] {len(verts)} vertices, {faces} faces, median | |v| - "
+              f"{SPHERE_RADIUS:g} | {med:.4f} (voxel {voxel:.3f}); TSDF "
+              f"fusion {timed['fuse_tsdf']:.3f} s on the card at R = {R}, "
+              f"surface in all {timed['extract_surface']:.3f} s", flush=True)
+        check(len(verts) > 0 and faces > 0, "empty mesh")
+        check(bool(np.isfinite(verts).all()), "non-finite mesh vertices")
+        check(med < voxel, f"mesh radial error {med:.4f} >= voxel {voxel:.3f}")
+
+        # Debug dumps and a profile trace of one run.
+        dbg, prof = tmp / "debug", tmp / "profile"
+        _sphere_run("debug", device, SPHERE_SETTINGS,
+                    ["--debug-dir", str(dbg), "--profile-dir", str(prof)],
+                    scene)
+        dumped = sorted(str(p.relative_to(dbg)) for p in dbg.rglob("*.*"))
+        views = [d for d in dumped if d.startswith("view_")]
+        print(f"[debug] {len(dumped)} files: points/seeds.ply "
+              f"{'points/seeds.ply' in dumped}, points/final.ply "
+              f"{'points/final.ply' in dumped}, {len(views)} occupancy "
+              f"images", flush=True)
+        check({"points/seeds.ply", "points/final.ply"} <= set(dumped),
+              f"debug dumps {dumped}")
+        check(len(views) == 12, f"{len(views)} occupancy images")
+        trace = prof / "densify.pt.trace.json"
+        text = trace.read_text()
+        print(f"[profile] {trace.name}: {trace.stat().st_size / 1e6:.1f} MB, "
+              f"allview_ncc_kernel named "
+              f"{text.count('allview_ncc_kernel')} times", flush=True)
+        check("allview_ncc_kernel" in text, "the trace never names K1")
+
+    # The native runtime (g++ is on any machine with nvcc).
+    check(native.available(), "the native runtime did not build or load")
+    print(f"[native] {native.library_path().name} loaded; seed stage of the "
+          f"main path {main_times['seed']:.3f} s with it", flush=True)
+
+    # Accuracy / completeness of the main path's cloud against the sphere.
+    rng = np.random.default_rng(0)
+    gt = rng.standard_normal((20000, 3))
+    gt *= SPHERE_RADIUS / np.linalg.norm(gt, axis=1, keepdims=True)
+    m = accuracy_completeness(main_pts, gt, threshold=1.5)
+    print(f"[metrics] main path vs 20000 samples of the sphere: "
+          f"{m.summary()}", flush=True)
+    check(np.isfinite([m.accuracy_mean, m.completeness_mean]).all(),
+          "non-finite cloud metrics")
 
 
 KERNELS = (
@@ -1650,7 +1885,9 @@ def main() -> int:
         # row-wise kernels are counted on the slot-scoring path, the two
         # window kernels on the ablation path above.
         phase_seed_variants("cuda")
-        launches["allview_ncc"], _ = phase_main_path("cuda")
+        launches["allview_ncc"], main_times, main_pts = phase_main_path(
+            "cuda")
+        phase_rest_of_pipeline("cuda", main_pts, main_times)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1

@@ -13,8 +13,16 @@ The package mirrors the layout and function names of the JAX package
               epipolar matching, tracks
   scripts/    kernel ablation programs (`python -m`)
   pmvs/       patch state, visibility, optimization, organizer, expansion,
-              filtering, the `densify` driver
-  io/         scene JSON reader, PLY
+              filtering, the `densify` driver (checkpoint / resume, debug
+              dumps, profile trace)
+  multiscale/ image pyramids and coarse-to-fine expansion
+  ba/         bundle adjustment (Levenberg-Marquardt, Schur-complement CG)
+  surface/    TSDF fusion and marching tetrahedra (`--mesh`)
+  io/         scene JSON reader, PLY, DTU / COLMAP converters
+  utils/      stage metrics, checkpoints, debug dumps, accuracy /
+              completeness
+  native/     ctypes binding to the C++ host runtime (union-find, PLY),
+              built with g++ at first use
   csrc/       CUDA C++ sources, built with nvcc at first use
 
 Tensors live on an explicit `device` (`densify(..., device=...)`,

@@ -2,7 +2,9 @@
 
     python -m densepoints_tpu_torch.cli -i scene.json -o cloud.ply \\
         [-s settings.json] [--profile scan] [--ascii] [--device cuda] \\
-        [--platform cpu|gpu|cuda] [--resume]
+        [--platform cpu|gpu|cuda] [--mesh mesh.ply] \\
+        [--checkpoint-dir DIR [--resume]] [--debug-dir DIR] \\
+        [--profile-dir DIR]
 """
 from __future__ import annotations
 
@@ -14,13 +16,9 @@ import sys
 from densepoints_tpu_torch.config import PipelineConfig, load_config
 from densepoints_tpu_torch.utils import log
 
-# Flags of the JAX CLI that the port does not carry yet, with the ROADMAP
-# item that brings them.
+# Flags of the JAX CLI that the port does not carry yet (multi-host and
+# multi-device runs), with the ROADMAP item that brings them.
 _NOT_PORTED = {
-    "--mesh": "A.11",
-    "--checkpoint-dir": "A.9",
-    "--debug-dir": "A.9",
-    "--profile-dir": "A.9",
     "--distributed": "A.11",
     "--coordinator": "A.11",
     "--num-processes": "A.11",
@@ -54,10 +52,25 @@ def build_parser() -> argparse.ArgumentParser:
         "cuda means --device cuda",
     )
     p.add_argument(
+        "--mesh", help="also extract a surface mesh to this path (.ply)"
+    )
+    p.add_argument(
+        "--checkpoint-dir",
+        help="write stage-boundary checkpoints here (resume with --resume)",
+    )
+    p.add_argument(
         "--resume",
         action="store_true",
         help="resume from the latest checkpoint in --checkpoint-dir; "
-        "without one (not ported yet) a plain run, as in the JAX CLI",
+        "without one a plain run, as in the JAX CLI",
+    )
+    p.add_argument(
+        "--debug-dir",
+        help="dump stage artifacts (seed/final clouds, occupancy grids)",
+    )
+    p.add_argument(
+        "--profile-dir",
+        help="write a torch.profiler Chrome trace of the run here",
     )
     p.add_argument(
         "--partition", choices=["replicated", "clustered"],
@@ -116,9 +129,19 @@ def main(argv=None) -> int:
     if args.profile:
         settings["profile"] = args.profile
     config = load_config(settings) if settings else PipelineConfig()
-    if args.resume:
+    runtime_overrides = {
+        key: value
+        for key, value in (
+            ("checkpoint_dir", args.checkpoint_dir),
+            ("resume", args.resume),
+            ("debug_dir", args.debug_dir),
+            ("profile_dir", args.profile_dir),
+        )
+        if value
+    }
+    if runtime_overrides:
         config = config.replace(
-            runtime=dataclasses.replace(config.runtime, resume=True))
+            runtime=dataclasses.replace(config.runtime, **runtime_overrides))
 
     from densepoints_tpu_torch.io.scene import load_scene
     from densepoints_tpu_torch.pmvs import pipeline
@@ -128,6 +151,16 @@ def main(argv=None) -> int:
     result = pipeline.densify(scene, config, device=device)
     result.save_ply(args.output, binary=not args.ascii)
     log.info("wrote %d points to %s", len(result.positions), args.output)
+    if args.mesh:
+        from densepoints_tpu_torch.io.ply import write_mesh_ply
+        from densepoints_tpu_torch.surface.tsdf import extract_surface
+
+        verts, faces = extract_surface(
+            result.positions, result.normals, config.surface, device=device
+        )
+        write_mesh_ply(args.mesh, verts, faces)
+        log.info("wrote mesh with %d vertices / %d faces to %s",
+                 len(verts), len(faces), args.mesh)
     return 0
 
 

@@ -1,9 +1,9 @@
 """Track assembly from pairwise matches + batched triangulation.
 
-A union-find over (view, keypoint) nodes on the host (cheap integer work)
-produces canonical multi-view tracks exactly once; observations are padded
-to (T, V) masked arrays and triangulated in ONE batched masked DLT on the
-device.
+A union-find over (view, keypoint) nodes on the host (cheap integer work,
+in the native runtime when it builds, else in Python) produces canonical
+multi-view tracks exactly once; observations are padded to (T, V) masked
+arrays and triangulated in ONE batched masked DLT on the device.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from densepoints_tpu_torch.geometry.triangulation import triangulate
+from densepoints_tpu_torch.native import tracks as native_tracks
 
 __all__ = ["build_tracks", "build_tracks_onehop", "triangulate_tracks"]
 
@@ -54,13 +55,17 @@ def build_tracks(
     keypoints = np.asarray(keypoints)
     matches = np.asarray(matches)
     N = keypoints.shape[1]
-    uf = _UnionFind(num_views * N)
-    for p, (a, b) in enumerate(pair_list):
-        m = matches[p]
-        for i in np.nonzero(m >= 0)[0]:
-            uf.union(int(a) * N + int(i), int(b) * N + int(m[i]))
-
-    roots = np.array([uf.find(i) for i in range(num_views * N)])
+    if native_tracks.available():
+        roots = native_tracks.roots(
+            native_tracks.union_matches(num_views, N, pair_list, matches)
+        )
+    else:
+        uf = _UnionFind(num_views * N)
+        for p, (a, b) in enumerate(pair_list):
+            m = matches[p]
+            for i in np.nonzero(m >= 0)[0]:
+                uf.union(int(a) * N + int(i), int(b) * N + int(m[i]))
+        roots = np.array([uf.find(i) for i in range(num_views * N)])
     order = np.argsort(roots, kind="stable")
     sorted_roots = roots[order]
     boundaries = np.nonzero(

@@ -9,10 +9,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from densepoints_tpu_torch.ba import BAProblem
 from densepoints_tpu_torch.core.cameras import Cameras
 from densepoints_tpu_torch.pmvs.patch import PatchState
 
-__all__ = ["cameras_from_numpy", "patch_state_from_numpy", "patch_state_to_numpy"]
+__all__ = [
+    "ba_problem_from_numpy",
+    "cameras_from_numpy",
+    "patch_state_from_numpy",
+    "patch_state_to_numpy",
+]
 
 
 def cameras_from_numpy(P, K, E, C, x_axis, width, height, device="cpu"):
@@ -53,3 +59,18 @@ def patch_state_to_numpy(state: PatchState) -> dict:
     }
     out["ref"] = out["ref"].astype(np.int32)
     return out
+
+
+def ba_problem_from_numpy(K, R0, C0, points0, obs_point, obs_view, obs_xy,
+                          obs_mask, device="cpu"):
+    """A `ba.BAProblem` holding these arrays (f32; indices as int64)."""
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return BAProblem(
+        K=t(K, torch.float32), R0=t(R0, torch.float32),
+        C0=t(C0, torch.float32), points0=t(points0, torch.float32),
+        obs_point=t(obs_point, torch.int64),
+        obs_view=t(obs_view, torch.int64),
+        obs_xy=t(obs_xy, torch.float32), obs_mask=t(obs_mask, torch.bool),
+    )

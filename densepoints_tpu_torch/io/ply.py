@@ -1,14 +1,17 @@
-"""PLY point-cloud writer (ascii + binary little-endian) and reader."""
+"""PLY point-cloud and mesh writer (ascii + binary little-endian) and
+reader. Binary clouds of 10,000 points or more go through the native
+runtime's writer when it builds."""
 from __future__ import annotations
 
 from pathlib import Path
 
 import numpy as np
 
-__all__ = ["write_ply", "read_ply"]
+__all__ = ["write_ply", "read_ply", "write_mesh_ply"]
 
 
-def _header(count: int, have_color: bool, have_normal: bool, binary: bool):
+def _header(count: int, have_color: bool, have_normal: bool, binary: bool,
+            face_count: int = 0):
     lines = [
         "ply",
         "format binary_little_endian 1.0" if binary else "format ascii 1.0",
@@ -22,6 +25,9 @@ def _header(count: int, have_color: bool, have_normal: bool, binary: bool):
         lines += [
             "property uchar red", "property uchar green", "property uchar blue",
         ]
+    if face_count:
+        lines += [f"element face {face_count}",
+                  "property list uchar int vertex_indices"]
     lines.append("end_header")
     return "\n".join(lines) + "\n"
 
@@ -31,6 +37,13 @@ def write_ply(path, positions, normals=None, colors=None, binary=True):
     (N,3) u8."""
     positions = np.asarray(positions, np.float32)
     n = len(positions)
+    if binary and n >= 10_000:
+        # Large clouds: the C++ writer when it builds (the same bytes but
+        # for the header's comment line).
+        from densepoints_tpu_torch.native.ply import write_ply_native
+
+        if write_ply_native(path, positions, normals, colors):
+            return
     header = _header(n, colors is not None, normals is not None, binary)
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -60,6 +73,31 @@ def write_ply(path, positions, normals=None, colors=None, binary=True):
                     for _, typ, col in fields
                 ]
                 f.write(" ".join(parts) + "\n")
+
+
+def write_mesh_ply(path, vertices, faces, binary=True):
+    """Write a triangle mesh: vertices (N, 3) f32, faces (M, 3) int32."""
+    vertices = np.asarray(vertices, np.float32)
+    faces = np.asarray(faces, np.int32)
+    header = _header(len(vertices), False, False, binary,
+                     face_count=len(faces))
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if binary:
+        with open(path, "wb") as f:
+            f.write(header.encode("ascii"))
+            vertices.astype("<f4").tofile(f)
+            rec = np.zeros(len(faces), dtype=[("n", "u1"), ("i", "<i4", (3,))])
+            rec["n"] = 3
+            rec["i"] = faces
+            rec.tofile(f)
+    else:
+        with open(path, "w") as f:
+            f.write(header)
+            for v in vertices:
+                f.write(f"{v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
+            for face in faces:
+                f.write(f"3 {face[0]} {face[1]} {face[2]}\n")
 
 
 def read_ply(path):

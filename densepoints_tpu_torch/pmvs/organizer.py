@@ -35,6 +35,10 @@ class OccupancyGrids:
     rows: torch.Tensor
 
     @property
+    def num_views(self) -> int:
+        return self.cells.shape[0]
+
+    @property
     def slots_per_cell(self) -> int:
         return 1 if self.cells.ndim == 3 else self.cells.shape[3]
 

@@ -36,6 +36,13 @@ class PatchState:
     def capacity(self) -> int:
         return self.position.shape[0]
 
+    @property
+    def num_views(self) -> int:
+        return self.vis.shape[1]
+
+    def num_alive(self) -> int:
+        return int(self.alive.sum())
+
     def num_visible(self) -> torch.Tensor:
         """(P,) count of truly-visible views per patch."""
         return self.vis.sum(dim=1)
@@ -45,6 +52,22 @@ class PatchState:
         return PatchState(
             **{f.name: fn(getattr(self, f.name))
                for f in dataclasses.fields(self)}
+        )
+
+    @classmethod
+    def empty(cls, capacity: int, num_views: int, dtype=torch.float32,
+              device="cuda"):
+        """`capacity` dead patches of `num_views` views on `device`."""
+        real = {"dtype": dtype, "device": device}
+        mask = {"dtype": torch.bool, "device": device}
+        return cls(
+            position=torch.zeros((capacity, 3), **real),
+            normal=torch.zeros((capacity, 3), **real),
+            ref=torch.zeros((capacity,), dtype=torch.int64, device=device),
+            vis=torch.zeros((capacity, num_views), **mask),
+            cand=torch.zeros((capacity, num_views), **mask),
+            alive=torch.zeros((capacity,), **mask),
+            color=torch.zeros((capacity, 3), **real),
         )
 
     @classmethod
