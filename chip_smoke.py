@@ -81,7 +81,23 @@ no result line:
      K1's kernel); `[native]` the native runtime built and loaded, the
      main path's seed seconds with it; `[metrics]` accuracy /
      completeness of phase 10's cloud against 20,000 samples of the
-     sphere at threshold 1.5.
+     sphere at threshold 1.5;
+  12. the multi-process paths on the sphere (`[parallel]`), each rank a
+     child process of this script (`--parallel-rank`, killed with the
+     others past 300 s; any rank's failure fails the phase), every counter
+     at 0 in each rank before its run, K1 launched and no plain call on
+     every rank: a, the CLI's `--distributed` on 1 rank (NCCL), its cloud
+     the main path's (count, `vis` and positions within 1e-5); b, 2 ranks
+     on the one card (gloo), the ranks' clouds bitwise equal and equal to
+     a's; c, `densify_clustered` on shared seeds on 1 and 2 ranks holding
+     every view (count exact, positions within 5e-3), and the CLI's
+     `--partition clustered --halo-threshold 0.5` on 2 ranks, each holding
+     fewer image bytes than the stack; d, `run_ba_sharded` on 2 ranks on
+     the turned calibration, its RMSE within twice the single-rank
+     solver's spread over 5 orders of its sums (at least 1e-3 px) of the
+     single rank's. Each `[parallel]` line gives the rank's backend, K1
+     launches, patches, radial error, stage seconds and the traffic of
+     its collectives. `--parallel` runs phases 10 and 12 alone.
 Each kernel's time stands beside its bound: the larger of the bytes it must
 move (every input read once, every output written once; of the image stack
 no more than the 4 taps of every texel this run's data samples) over
@@ -1225,8 +1241,8 @@ SPHERE_SETTINGS = {
 def _cli_on_sphere(device: str, settings: dict, flags=(), scene_path=None):
     """`cli.main` on the sphere scene (written anew unless `scene_path` is
     given) with `settings` and extra `flags`, every launch counter set to 0
-    just before; returns (positions, metrics, wall seconds, launches, plain
-    calls)."""
+    just before; returns (positions, the `DensifyResult`, wall seconds,
+    launches, plain calls)."""
     import numpy as np
 
     from densepoints_tpu_torch import cli
@@ -1260,7 +1276,7 @@ def _cli_on_sphere(device: str, settings: dict, flags=(), scene_path=None):
         pts = read_ply(out)["positions"]
     check(pts.ndim == 2 and pts.shape[1] == 3, f"PLY positions {pts.shape}")
     check(bool(np.isfinite(pts).all()), "non-finite positions in the PLY")
-    return pts, captured["result"].metrics, wall, launches, plain
+    return pts, captured["result"], wall, launches, plain
 
 
 def _radial_error(pts):
@@ -1274,9 +1290,10 @@ def _radial_error(pts):
 
 def phase_main_path(device: str):
     """The CLI on the sphere scene; returns (launches, stage seconds,
-    positions)."""
-    pts, metrics, wall, all_launches, all_plain = _cli_on_sphere(
+    positions, the final PatchState)."""
+    pts, result, wall, all_launches, all_plain = _cli_on_sphere(
         device, SPHERE_SETTINGS)
+    metrics = result.metrics
     launches = all_launches["allview_ncc"]
     plain = sum(all_plain.values())
     med = _radial_error(pts)
@@ -1294,7 +1311,7 @@ def phase_main_path(device: str):
     check(len(pts) >= 1000, f"only {len(pts)} patches (need >= 1000)")
     check(med < 0.01 * SPHERE_RADIUS,
           f"median radial error {med:.4f} >= {0.01 * SPHERE_RADIUS}")
-    return launches, metrics.times, pts
+    return launches, metrics.times, pts, result.patches
 
 
 def phase_seed_variants(device: str):
@@ -1346,7 +1363,7 @@ def phase_seed_variants(device: str):
     try:
         settings = json.loads(json.dumps(SPHERE_SETTINGS))
         settings["expand"]["prescreen"] = "claim"
-        pts, metrics, wall, launches, plain = _cli_on_sphere(device, settings)
+        pts, result, wall, launches, plain = _cli_on_sphere(device, settings)
     finally:
         logger.removeHandler(handler)
     screened = [line for line in lines if "prescreen" in line]
@@ -1354,7 +1371,7 @@ def phase_seed_variants(device: str):
         print(f"[prescreen] {line}", flush=True)
     med = _radial_error(pts)
     print(f"[prescreen] cli wall {wall:.2f} s, expand "
-          f"{metrics.times['expand']:.3f} s, allview_ncc launches "
+          f"{result.metrics.times['expand']:.3f} s, allview_ncc launches "
           f"{launches['allview_ncc']}, plain calls {sum(plain.values())}, "
           f"{len(pts)} patches, median radial error {med:.4f}", flush=True)
     check(len(screened) > 0, "the pre-screen logged no round")
@@ -1369,8 +1386,9 @@ def _sphere_run(label, device, settings, flags=(), scene_path=None,
     """One CLI run of phase 11: K1 launched and no plain call, at least
     1000 patches, a median radial error under `radial_limit` (unless None);
     prints and returns (positions, metrics)."""
-    pts, metrics, wall, launches, plain = _cli_on_sphere(
+    pts, result, wall, launches, plain = _cli_on_sphere(
         device, settings, flags, scene_path)
+    metrics = result.metrics
     med = _radial_error(pts)
     print(f"[{label}] cli wall {wall:.2f} s; stage seconds: "
           + " ".join(f"{k}={v:.3f}" for k, v in metrics.times.items()),
@@ -1386,9 +1404,57 @@ def _sphere_run(label, device, settings, flags=(), scene_path=None,
     return pts, metrics
 
 
+def _ba_rmse_orders(scene_path, settings, device, n_orders):
+    """RMSE in pixels of the single-rank `run_ba` of the scene's seed tracks
+    with the observations in their order, then shuffled by seeds 1, 2, ...
+    (`n_orders` solves in all). The same problem each time; only the order
+    in which the segment sums add changes."""
+    import numpy as np
+    import torch
+
+    from densepoints_tpu_torch.ba import BAProblem, reprojection_rmse, run_ba
+    from densepoints_tpu_torch.config import load_config
+    from densepoints_tpu_torch.io import load_scene
+    from densepoints_tpu_torch.pmvs.seed import generate_seed_points
+
+    config = load_config(settings)
+    scene = load_scene(scene_path, device=device)
+    cams = scene.cameras
+    images = torch.as_tensor(scene.images, dtype=torch.float32, device=device)
+    points, obs, mask = generate_seed_points(images, cams, config.matching)
+    tp, tv = np.nonzero(mask)
+    out = []
+    for seed in range(n_orders):
+        order = (np.arange(len(tp)) if seed == 0
+                 else np.random.default_rng(seed).permutation(len(tp)))
+        p, v = tp[order], tv[order]
+        problem = BAProblem(
+            K=cams.K, R0=cams.R, C0=cams.C,
+            points0=torch.as_tensor(points, dtype=torch.float32,
+                                    device=device),
+            obs_point=torch.as_tensor(p, dtype=torch.int64, device=device),
+            obs_view=torch.as_tensor(v, dtype=torch.int64, device=device),
+            obs_xy=torch.as_tensor(obs[p, v], dtype=torch.float32,
+                                   device=device),
+            obs_mask=torch.ones((len(p),), dtype=torch.bool, device=device),
+        )
+        R, C, X, _ = run_ba(problem, config.ba.max_outer_iterations,
+                            config.ba.cg_iterations, config.ba.damping,
+                            config.ba.robust_delta)
+        out.append(float(reprojection_rmse(problem, R, C, X)))
+    return out
+
+
 def _seed_rmse(scene_path, settings, device):
     """Reprojection RMSE of the scene's seed tracks against its own cameras
     (the pipeline's bundle adjustment with no iteration), on the card."""
+    return _ba_rmse(scene_path, settings, device, iterations=0)
+
+
+def _ba_rmse(scene_path, settings, device, iterations=None):
+    """The pipeline's bundle adjustment of the scene's seed tracks on one
+    rank (with `iterations` LM iterations in place of the settings'), as a
+    CLI run makes it; returns the RMSE in pixels."""
     import dataclasses
 
     import torch
@@ -1403,8 +1469,10 @@ def _seed_rmse(scene_path, settings, device):
     images = torch.as_tensor(scene.images, dtype=torch.float32, device=device)
     points, obs, mask = generate_seed_points(images, scene.cameras,
                                              config.matching)
-    untouched = dataclasses.replace(config.ba, max_outer_iterations=0)
-    return _bundle_adjust(scene.cameras, points, obs, mask, untouched)[2]
+    ba = config.ba
+    if iterations is not None:
+        ba = dataclasses.replace(ba, max_outer_iterations=iterations)
+    return _bundle_adjust(scene.cameras, points, obs, mask, ba)[2]
 
 
 def _with_settings(**sections):
@@ -1417,7 +1485,8 @@ def _with_settings(**sections):
 def phase_rest_of_pipeline(device, main_pts, main_times):
     """Phase 11: checkpoint / resume, multi-scale, bundle adjustment, the
     mesh, debug and profile dumps, the native runtime and the cloud metrics,
-    each CLI run on the sphere with every counter set to 0 just before."""
+    each CLI run on the sphere with every counter set to 0 just before.
+    Returns the BA RMSE of the turned calibration."""
     import numpy as np
     import torch
 
@@ -1568,6 +1637,384 @@ def phase_rest_of_pipeline(device, main_pts, main_times):
           f"{m.summary()}", flush=True)
     check(np.isfinite([m.accuracy_mean, m.completeness_mean]).all(),
           "non-finite cloud metrics")
+    return rmse
+
+
+# Phase 12: every rank of a job is a child process of this script
+# (--parallel-rank SPEC), killed with the others if one runs past this.
+PARALLEL_CHILD_S = 300
+# One host: the ranks meet on the loopback interface.
+PARALLEL_ENV = {"NCCL_SOCKET_IFNAME": "lo", "GLOO_SOCKET_IFNAME": "lo"}
+# Clustered partitioning with a halo of views covisible above 0.5: each of
+# the sphere's two clusters holds 9 of its 12 views.
+PARALLEL_HALO = 0.5
+PARALLEL_ATOL = 1e-5  # N ranks vs 1 rank, replicated driver
+CLUSTERED_ATOL = 5e-3  # N ranks vs 1 rank, clustered driver
+BA_RMSE_ATOL = 1e-3  # pixels, sharded vs single-rank BA
+BA_ORDERS = 5  # single-rank BA in the observations' order and 4 shuffles
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(label, world, spec, tmp):
+    """The `world` ranks of one job, each this script with --parallel-rank;
+    waits for all within PARALLEL_CHILD_S seconds (every rank is killed if
+    one exceeds it) and fails if a rank fails. Returns each rank's record
+    (its last `[parallel-rank]` JSON line)."""
+    import os
+
+    port = _free_port()
+    env = dict(os.environ, **PARALLEL_ENV)
+    procs = []
+    for rank in range(world):
+        child = dict(spec, rank=rank, world=world, port=port,
+                     out=str(tmp / f"{label}.{rank}.npz"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-rank",
+             json.dumps(child)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env))
+    deadline = time.monotonic() + PARALLEL_CHILD_S
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(
+                timeout=max(deadline - time.monotonic(), 1.0))[0])
+    except subprocess.TimeoutExpired:
+        for proc in procs:
+            proc.kill()
+        for proc in procs:
+            proc.communicate()
+        raise SmokeFailure(f"[parallel] {label}: a rank ran past "
+                           f"{PARALLEL_CHILD_S} s; every rank was killed")
+    records = []
+    for rank, (proc, log) in enumerate(zip(procs, logs)):
+        lines = [line for line in log.splitlines()
+                 if line.startswith("[parallel-rank] ")]
+        check(proc.returncode == 0 and lines,
+              f"[parallel] {label}: rank {rank}/{world} failed "
+              f"({proc.returncode}):\n{log[-3000:]}")
+        records.append(json.loads(lines[-1][len("[parallel-rank] "):]))
+    return records
+
+
+def parallel_rank(spec):
+    """The `--parallel-rank SPEC` mode: one rank of a phase 12 job. With
+    "flags", `cli.main` with those flags joined to the job (counters at 0
+    before); with "ba", the view-sharded seeds and `run_ba_sharded` of the
+    scene. Writes its cloud to SPEC["out"] and prints one JSON line."""
+    import numpy as np
+    import torch
+
+    spec = json.loads(spec)
+    check(spec["device"] != "cuda" or torch.cuda.is_available(),
+          "a rank found no CUDA card")
+    job = ["--coordinator", f"127.0.0.1:{spec['port']}", "--num-processes",
+           str(spec["world"]), "--process-id", str(spec["rank"])]
+    if spec.get("ba"):
+        record = _parallel_ba_rank(spec)
+    else:
+        from densepoints_tpu_torch import cli
+        from densepoints_tpu_torch.parallel import clustered, multihost
+
+        captured = {}
+
+        def recording(module, name):
+            inner = getattr(module, name)
+
+            def run(*args, **kwargs):
+                captured["mesh"] = kwargs["mesh"]
+                captured["result"] = inner(*args, **kwargs)
+                return captured["result"]
+
+            setattr(module, name, run)
+            return inner
+
+        saved = (recording(multihost, "densify_multihost"),
+                 recording(clustered, "densify_clustered"))
+        _reset_counters()
+        t0 = time.perf_counter()
+        try:
+            rc = (_seeded_clustered_rank(spec, clustered) if "halo" in spec
+                  else cli.main(spec["flags"] + job))
+        finally:
+            multihost.densify_multihost, clustered.densify_clustered = saved
+        wall = time.perf_counter() - t0
+        launches, plain = _read_counters()
+        check(rc == 0, f"cli.main returned {rc}")
+        res, mesh = captured["result"], captured["mesh"]
+        pts = res.patches.position.cpu().numpy()
+        np.savez(spec["out"], position=pts,
+                 normal=res.patches.normal.cpu().numpy(),
+                 vis=res.patches.vis.cpu().numpy())
+        record = {
+            "backend": mesh.backend, "device": str(mesh.device),
+            "launches": launches["allview_ncc"],
+            "plain": sum(plain.values()), "patches": len(pts),
+            "radial": _radial_error(pts), "wall_s": round(wall, 3),
+            "stage_s": {k: round(v, 3) for k, v in res.metrics.times.items()},
+            "counters": res.metrics.counters,
+        }
+    record.update(rank=spec["rank"], world=spec["world"])
+    print("[parallel-rank] " + json.dumps(record), flush=True)
+    return 0
+
+
+def _seeded_clustered_rank(spec, clustered):
+    """`densify_clustered` with seed points every rank shares (the single
+    front end's, computed on each rank), the canonical priorities that make
+    the cloud independent of the number of ranks."""
+    import torch
+
+    from densepoints_tpu_torch.config import load_config
+    from densepoints_tpu_torch.io import load_scene
+    from densepoints_tpu_torch.parallel import mesh as pmesh
+    from densepoints_tpu_torch.pmvs.seed import generate_seed_points
+
+    pmesh.initialize_multihost(f"127.0.0.1:{spec['port']}", spec["world"],
+                               spec["rank"], device=spec["device"])
+    mesh = pmesh.global_mesh()
+    config = load_config(spec["settings"])
+    scene = load_scene(spec["scene"], device=mesh.device)
+    images = torch.as_tensor(scene.images, dtype=torch.float32,
+                             device=mesh.device)
+    points, _, _ = generate_seed_points(images, scene.cameras,
+                                        config.matching)
+    clustered.densify_clustered(scene, config, seed_points=points,
+                                halo_threshold=spec["halo"], mesh=mesh)
+    pmesh.shutdown_multihost()
+    return 0
+
+
+def _parallel_ba_rank(spec):
+    import torch
+
+    from densepoints_tpu_torch.config import load_config
+    from densepoints_tpu_torch.io import load_scene
+    from densepoints_tpu_torch.parallel import mesh as pmesh
+    from densepoints_tpu_torch.pmvs.pipeline import _bundle_adjust
+    from densepoints_tpu_torch.pmvs.seed import generate_seed_points
+
+    pmesh.initialize_multihost(f"127.0.0.1:{spec['port']}", spec["world"],
+                               spec["rank"], device=spec["device"])
+    mesh = pmesh.global_mesh()
+    config = load_config(spec["settings"])
+    scene = load_scene(spec["scene"], device=mesh.device)
+    images = torch.as_tensor(scene.images, dtype=torch.float32,
+                             device=mesh.device)
+    points, obs, mask = generate_seed_points(images, scene.cameras,
+                                             config.matching, mesh=mesh)
+    sync = torch.cuda.synchronize if mesh.device.type == "cuda" else None
+    if sync:
+        sync()
+    t0 = time.perf_counter()
+    _, _, rmse = _bundle_adjust(scene.cameras, points, obs, mask, config.ba,
+                                mesh=mesh)
+    secs = time.perf_counter() - t0
+    traffic = mesh.traffic
+    record = {"backend": mesh.backend, "rmse": rmse, "ba_s": round(secs, 3),
+              "seeds": len(points), "observations": int(mask.sum()),
+              "collective_bytes": traffic.collective_bytes,
+              "collective_calls": traffic.calls,
+              "host_bytes": traffic.host_bytes}
+    pmesh.shutdown_multihost()
+    return record
+
+
+def _parallel_line(label, rec):
+    c = rec.get("counters", {})
+    overhead = " ".join(f"{k[len('overhead_'):]}={c[k]:g}" for k in sorted(c)
+                        if k.startswith("overhead_"))
+    held = (f" image_bytes_held={c['image_bytes_held']:g}"
+            if "image_bytes_held" in c else "")
+    print(f"[parallel] {label} rank {rec['rank']}/{rec['world']} "
+          f"backend={rec['backend']} device={rec['device']} "
+          f"K1_launches={rec['launches']} plain_calls={rec['plain']} "
+          f"patches={rec['patches']} median_radial_error={rec['radial']:.4f} "
+          f"wall={rec['wall_s']:.3f}s stage_s=" + ",".join(
+              f"{k}:{v:.3f}" for k, v in rec["stage_s"].items())
+          + (f" {overhead}" if overhead else "") + held, flush=True)
+
+
+def _same_cloud(label, got, want, atol, nearest=False):
+    """Equal count; `vis` equal and positions and normals within `atol` row
+    for row, or (`nearest`) every position within `atol` of the other
+    cloud's nearest. Returns the largest position difference."""
+    import numpy as np
+
+    check(len(got["position"]) == len(want["position"]),
+          f"[parallel] {label}: {len(got['position'])} patches, "
+          f"expected {len(want['position'])}")
+    if not len(got["position"]):
+        return 0.0
+    if nearest:
+        d = np.linalg.norm(got["position"][:, None] - want["position"][None],
+                           axis=-1).min(axis=1)
+        worst = float(d.max())
+    else:
+        check(bool(np.array_equal(got["vis"], want["vis"])),
+              f"[parallel] {label}: vis differs")
+        worst = float(np.abs(got["position"] - want["position"]).max())
+        worst_n = float(np.abs(got["normal"] - want["normal"]).max())
+        check(worst_n <= atol, f"[parallel] {label}: normals differ by "
+              f"{worst_n:.3e}")
+    check(worst <= atol, f"[parallel] {label}: positions differ by "
+          f"{worst:.3e} (limit {atol:g})")
+    return worst
+
+
+def phase_parallel(device, main_patches, ba_turned_rmse):
+    """Phase 12: the multi-process paths on the sphere, each rank a child
+    process with every counter at 0 before its run. a: `--distributed`, 1
+    rank (NCCL), against the main path's cloud; b: 2 ranks on the one card
+    (gloo), both ranks' clouds bitwise equal and equal to a's; c: clustered
+    partitioning, 2 ranks against 1 with every view held, and 2 ranks with
+    a halo of 9 of the 12 views (fewer image bytes than the stack); d:
+    `run_ba_sharded` on 2 ranks on the turned calibration, against the
+    single-rank BA within twice that solver's own spread over the order of
+    its sums. Returns the K1 launches of every rank of every run."""
+    import numpy as np
+
+    from densepoints_tpu_torch.io.ply import read_ply
+
+    main = {"position": main_patches.position.cpu().numpy(),
+            "normal": main_patches.normal.cpu().numpy(),
+            "vis": main_patches.vis.cpu().numpy()}
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "scene").mkdir()
+        scene = write_sphere_scene(tmp / "scene")
+        settings = tmp / "settings.json"
+        settings.write_text(json.dumps(SPHERE_SETTINGS))
+        base = ["-i", str(scene), "-s", str(settings), "--device", device]
+
+        def job(label, world, flags, halo=None):
+            """A CLI run with `flags`, or with `halo`, `densify_clustered`
+            on the seeds of the single front end (no PLY then)."""
+            ply = tmp / f"{label}.ply"
+            spec = {"flags": base + flags + ["-o", str(ply)],
+                    "device": device}
+            if halo is not None:
+                spec.update(halo=halo, scene=str(scene),
+                            settings=SPHERE_SETTINGS)
+            recs = _run_ranks(label, world, spec, tmp)
+            clouds = []
+            for rec in recs:
+                _parallel_line(label, rec)
+                launches[f"{label}_rank{rec['rank']}"] = rec["launches"]
+                check(rec["launches"] > 0,
+                      f"[parallel] {label}: rank {rec['rank']} launched no K1")
+                check(rec["plain"] == 0, f"[parallel] {label}: rank "
+                      f"{rec['rank']} took the plain path {rec['plain']} times")
+                with np.load(tmp / f"{label}.{rec['rank']}.npz") as f:
+                    clouds.append({k: f[k] for k in f.files})
+            if halo is None:
+                written = read_ply(ply)["positions"]
+                check(np.array_equal(written, clouds[0]["position"]),
+                      f"[parallel] {label}: the PLY is not rank 0's cloud")
+            for rank, cloud in enumerate(clouds[1:], 1):
+                for key in ("position", "normal", "vis"):
+                    check(np.array_equal(cloud[key], clouds[0][key]),
+                          f"[parallel] {label}: rank {rank}'s {key} differs "
+                          "from rank 0's")
+            return recs, clouds[0]
+
+        a_recs, a = job("a", 1, ["--distributed"])
+        want = "nccl" if device == "cuda" else "gloo"
+        check(a_recs[0]["backend"] == want,
+              f"[parallel] a: backend {a_recs[0]['backend']}, expected {want}")
+        exact = (len(a["position"]) == len(main["position"])
+                 and np.array_equal(a["vis"], main["vis"]))
+        if exact:
+            worst = _same_cloud("a vs main", a, main, PARALLEL_ATOL)
+            print(f"[parallel] a vs the main path: {len(a['position'])} "
+                  f"patches each, vis equal, positions within {worst:.3e}",
+                  flush=True)
+        else:
+            n, m = len(a["position"]), len(main["position"])
+            print(f"[parallel] a vs the main path: {n} patches against {m} "
+                  f"({100.0 * (n - m) / m:+.3f}%), vis "
+                  f"{'equal' if n == m else 'of other rows'}", flush=True)
+            check(abs(n - m) <= 0.01 * m,
+                  f"[parallel] a: {n} patches against the main path's {m}")
+        b_recs, b = job("b", 2, ["--distributed"])
+        check(all(r["backend"] == "gloo" for r in b_recs),
+              "[parallel] b: two ranks on one card should use gloo")
+        worst = _same_cloud("b vs a", b, a, PARALLEL_ATOL)
+        print(f"[parallel] b vs a: {len(b['position'])} patches each, vis "
+              f"equal, positions within {worst:.3e}", flush=True)
+
+        # Shared seeds: each rank's own seeds would take priorities offset
+        # by its rank, and the cloud would depend on the number of ranks.
+        _, c1 = job("c_one", 1, [], halo=-1.0)
+        _, c2 = job("c_two", 2, [], halo=-1.0)
+        worst = _same_cloud("c_two vs c_one", c2, c1, CLUSTERED_ATOL,
+                            nearest=True)
+        print(f"[parallel] c: clustered 2 ranks vs 1 rank, every view held, "
+              f"shared seeds: {len(c2['position'])} patches each, nearest "
+              f"positions within {worst:.3e}", flush=True)
+        halo_recs, _ = job("c_halo", 2, [
+            "--partition", "clustered", "--halo-threshold",
+            str(PARALLEL_HALO)])
+        c = halo_recs[0]["counters"]
+        stack = int(c["image_bytes_held"] / c["images_held"]
+                    * c["images_total"])
+        for rec in halo_recs:
+            held = rec["counters"]["image_bytes_held"]
+            check(held < stack, f"[parallel] c_halo: rank {rec['rank']} "
+                  f"holds {held:g} bytes of the {stack} of the stack")
+        print(f"[parallel] c: halo {PARALLEL_HALO}: ranks hold " + ", ".join(
+            f"{r['counters']['images_held']:g}" for r in halo_recs)
+            + f" of {c['images_total']:g} views (" + ", ".join(
+                f"{r['counters']['image_bytes_held']:g}" for r in halo_recs)
+            + f" of {stack} bytes)", flush=True)
+
+        # d: sharded BA on the turned calibration, against one rank's.
+        (tmp / "turned").mkdir()
+        turned = write_sphere_scene(tmp / "turned", turn=0.002)
+        ba_settings = _with_settings(ba={"enable": True})
+        orders = _ba_rmse_orders(turned, ba_settings, device, BA_ORDERS)
+        single, lo, hi = orders[0], min(orders), max(orders)
+        print(f"[parallel] d: single-rank run_ba RMSE {single:.6f} px in the "
+              f"observations' order, {lo:.6f} - {hi:.6f} px over it and "
+              f"{BA_ORDERS - 1} permutations of it (the sums' order moves "
+              f"this problem's solution)", flush=True)
+        d_recs = _run_ranks("d", 2, {"ba": True, "scene": str(turned),
+                                     "settings": ba_settings,
+                                     "device": device}, tmp)
+        for rec in d_recs:
+            print(f"[parallel] d rank {rec['rank']}/2 backend={rec['backend']}"
+                  f" run_ba_sharded RMSE {rec['rmse']:.6f} px in "
+                  f"{rec['ba_s']:.3f} s over {rec['observations']} "
+                  f"observations of {rec['seeds']} seeds; collective "
+                  f"bytes={rec['collective_bytes']} calls="
+                  f"{rec['collective_calls']} host_bytes={rec['host_bytes']}",
+                  flush=True)
+            # The sharded sums add in another order, which moves this
+            # problem's solution as much as a shuffle of the observations
+            # moves the single rank's: held to twice that spread (PERF.md,
+            # section 6), and to BA_RMSE_ATOL where the spread is smaller.
+            tol = max(BA_RMSE_ATOL, 2.0 * (hi - lo))
+            check(abs(rec["rmse"] - single) <= tol,
+                  f"[parallel] d: sharded RMSE {rec['rmse']:.6f} px, single "
+                  f"rank {single:.6f} px (limit {tol:.6f}: twice the single "
+                  f"rank's spread over the sums' orders)")
+            print(f"[parallel] d rank {rec['rank']}: |sharded - single| "
+                  f"{abs(rec['rmse'] - single):.6f} px (limit {tol:.6f})",
+                  flush=True)
+        print(f"[parallel] d: single-rank run_ba RMSE {single:.6f} px here, "
+              f"{ba_turned_rmse:.6f} px in phase 11's CLI run", flush=True)
+        check(abs(single - ba_turned_rmse) <= BA_RMSE_ATOL,
+              f"[parallel] d: single-rank RMSE {single:.6f} px, phase 11 "
+              f"{ba_turned_rmse:.6f} px")
+    return launches
 
 
 KERNELS = (
@@ -1657,9 +2104,10 @@ def profile_main(device):
     _cli_on_sphere(device, SPHERE_SETTINGS)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        pts, metrics, wall, launches, plain = _cli_on_sphere(
+        pts, result, wall, launches, plain = _cli_on_sphere(
             device, SPHERE_SETTINGS)
         torch.cuda.synchronize()
+    metrics = result.metrics
     groups = {"all": [0, 0.0], "allview_ncc_kernel": [0, 0.0],
               "bmm_or_gemm": [0, 0.0]}
     for event in prof.key_averages():
@@ -1856,11 +2304,32 @@ def kernel_resources(device):
     print(json.dumps(out), flush=True)
 
 
+def parallel_only(device):
+    """The `--parallel` mode: the main path (phase 10), then phase 12, with
+    the single-rank BA of the turned calibration computed here in place of
+    phase 11's CLI run."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        turned = write_sphere_scene(Path(tmp), turn=0.002)
+        ba_turned = _ba_rmse(turned, _with_settings(ba={"enable": True}),
+                             device)
+    _, _, _, main_patches = phase_main_path(device)
+    launches = phase_parallel(device, main_patches, ba_turned)
+    print(json.dumps({"allview_ncc_launches_parallel": launches}),
+          flush=True)
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
+    if len(sys.argv) == 3 and sys.argv[1] == "--parallel-rank":
+        try:
+            return parallel_rank(sys.argv[2])
+        except SmokeFailure as exc:
+            print(f"FAIL: {exc}", flush=True)
+            return 1
     modes = {"--time-allview": time_allview, "--time-window": time_window,
              "--time-ncc": time_ncc, "--profile-main": profile_main,
-             "--kernel-resources": kernel_resources}
+             "--kernel-resources": kernel_resources,
+             "--parallel": parallel_only}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         try:
             phase_device()
@@ -1885,9 +2354,10 @@ def main() -> int:
         # row-wise kernels are counted on the slot-scoring path, the two
         # window kernels on the ablation path above.
         phase_seed_variants("cuda")
-        launches["allview_ncc"], main_times, main_pts = phase_main_path(
-            "cuda")
-        phase_rest_of_pipeline("cuda", main_pts, main_times)
+        (launches["allview_ncc"], main_times, main_pts,
+         main_patches) = phase_main_path("cuda")
+        ba_turned = phase_rest_of_pipeline("cuda", main_pts, main_times)
+        parallel = phase_parallel("cuda", main_patches, ba_turned)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
@@ -1909,6 +2379,9 @@ def main() -> int:
             "plain_ms": shown["plain_ms"],
             "bound_ms": shown["bound_ms"],
             "bound_by": shown["bound_by"],
+            # Phase 12's runs, every rank's own count (K1 alone).
+            **({"launches_parallel": parallel}
+               if kernel == "allview_ncc" else {}),
             # No single PyTorch call computes a projective warp + NCC, a
             # clamped row-wise NCC, or window-relative sampling with zeros
             # outside the window (`grid_sample` clamps or pads by image,

@@ -3,4 +3,5 @@ from densepoints_tpu_torch.ba.ba import (
     reprojection_rmse,
     rodrigues,
     run_ba,
+    run_ba_sharded,
 )

@@ -16,6 +16,11 @@ Everything is f32 on the device of the problem's tensors. The CG has a
 fixed length and the LM accept/reject is a `torch.where`, so the solve
 queues its work without waiting on the device. The segment sums add in a
 fixed order, so one problem gives one solution, run after run.
+
+`run_ba_sharded` splits the observations over the ranks of a mesh: every
+segment sum over observations is summed over the ranks (`reduce`, one
+`all_reduce` each) and the camera and point blocks stay replicated, so the
+LM and CG control flow is the same on every rank.
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ import dataclasses
 import torch
 from torch.func import jacfwd, vmap
 
-__all__ = ["BAProblem", "run_ba", "reprojection_rmse", "rodrigues"]
+__all__ = ["BAProblem", "run_ba", "run_ba_sharded", "reprojection_rmse",
+           "rodrigues"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,14 +129,23 @@ def _segment_sum(values, ids, n):
     return out.index_put_((ids,), values, accumulate=True)
 
 
-def _schur_matvec(x, U, W, Vinv, obs_view, obs_point, num_views):
-    """Apply S = U - W V^-1 W^T to stacked camera deltas x (V,6)."""
+def _identity(x):
+    return x
+
+
+def _schur_matvec(x, U, W, Vinv, obs_view, obs_point, num_views,
+                  reduce=_identity):
+    """Apply S = U - W V^-1 W^T to stacked camera deltas x (V,6).
+
+    `reduce` is the identity on one rank; under `run_ba_sharded` it sums
+    the observation shards' partials over the ranks (two small collectives
+    per CG product, (N,3) and (V,6))."""
     y1 = torch.einsum("vij,vj->vi", U, x)
     t = torch.einsum("mij,mi->mj", W, x[obs_view])  # (M, 3) = W^T x per obs
     u_p = torch.einsum("pij,pj->pi", Vinv,
-                       _segment_sum(t, obs_point, Vinv.shape[0]))
+                       reduce(_segment_sum(t, obs_point, Vinv.shape[0])))
     z = torch.einsum("mij,mj->mi", W, u_p[obs_point])  # (M, 6)
-    return y1 - _segment_sum(z, obs_view, num_views)
+    return y1 - reduce(_segment_sum(z, obs_view, num_views))
 
 
 def _cg(matvec, b, iterations: int):
@@ -159,19 +174,31 @@ def run_ba(
     """Levenberg-Marquardt with a Schur-complement CG, on the device of the
     problem's tensors. Returns (R (V,3,3), C (V,3), points (N,3), final
     mean robustified reprojection cost)."""
+    return _ba_core(problem, max_outer_iterations, cg_iterations, damping,
+                    robust_delta)
+
+
+def _ba_core(problem, max_outer_iterations, cg_iterations, damping,
+             robust_delta, reduce=_identity):
+    """`run_ba`'s solver; `reduce` sums observation-shard partials over the
+    ranks (the identity on one rank). Everything per camera or per point is
+    replicated after the reduction."""
     V = problem.K.shape[0]
     N = problem.points0.shape[0]
     mask = problem.obs_mask.to(problem.obs_xy.dtype)
-    n_obs = torch.clamp_min(mask.sum(), 1.0)
+    n_obs = torch.clamp_min(reduce(mask.sum()), 1.0)
     obs_view, obs_point = problem.obs_view, problem.obs_point
 
     def cost(cam_params, points):
         r = _residuals(problem, cam_params, points)
         w = _huber_weights(r, robust_delta)
-        return (((w[:, None] * r) ** 2).sum(-1) * mask).sum() / n_obs
+        return reduce((((w[:, None] * r) ** 2).sum(-1) * mask).sum()) / n_obs
 
     def outer(m):
         return torch.einsum("mri,mrj->mij", m, m)
+
+    def seg(values, ids, n):
+        return reduce(_segment_sum(values, ids, n))
 
     cam_params = problem.points0.new_zeros((V, 6))
     points = problem.points0
@@ -185,30 +212,29 @@ def run_ba(
         Jc = Jc * w[:, :, None]
         Jp = Jp * w[:, :, None]
 
-        U = _segment_sum(outer(Jc), obs_view, V) + lam * eye6
-        Vp = _segment_sum(outer(Jp), obs_point, N) + lam * eye3
+        U = seg(outer(Jc), obs_view, V) + lam * eye6
+        Vp = seg(outer(Jp), obs_point, N) + lam * eye3
         W = torch.einsum("mri,mrj->mij", Jc, Jp)  # (M, 6, 3)
-        g_c = -_segment_sum(torch.einsum("mri,mr->mi", Jc, r), obs_view, V)
-        g_p = -_segment_sum(torch.einsum("mri,mr->mi", Jp, r), obs_point, N)
+        g_c = -seg(torch.einsum("mri,mr->mi", Jc, r), obs_view, V)
+        g_p = -seg(torch.einsum("mri,mr->mi", Jp, r), obs_point, N)
         # inv_ex: no host check of the factorization (which would wait on
         # the device); a singular block gives inf/nan as in the JAX solver.
         Vinv = torch.linalg.inv_ex(Vp)[0]
 
         # Reduced RHS: b = g_c - W V^-1 g_p (gathered per observation).
         u_p = torch.einsum("pij,pj->pi", Vinv, g_p)
-        b = g_c - _segment_sum(
+        b = g_c - seg(
             torch.einsum("mij,mj->mi", W, u_p[obs_point]), obs_view, V
         )
 
         def matvec(x):
             return _schur_matvec(x.reshape(V, 6), U, W, Vinv, obs_view,
-                                 obs_point, V).reshape(-1)
+                                 obs_point, V, reduce).reshape(-1)
 
         dx_c = _cg(matvec, b.reshape(-1), cg_iterations).reshape(V, 6)
 
         # Back-substitute points: dX = V^-1 (g_p - W^T dx_c).
-        t = _segment_sum(torch.einsum("mij,mi->mj", W, dx_c[obs_view]),
-                         obs_point, N)
+        t = seg(torch.einsum("mij,mi->mj", W, dx_c[obs_view]), obs_point, N)
         dx_p = torch.einsum("pij,pj->pi", Vinv, g_p - t)
 
         new_cam = cam_params + dx_c
@@ -220,6 +246,48 @@ def run_ba(
     R = problem.R0 @ rodrigues(cam_params[:, :3])
     C = problem.C0 + cam_params[:, 3:]
     return R, C, points, cost(cam_params, points)
+
+
+def run_ba_sharded(
+    problem: BAProblem,
+    mesh,
+    max_outer_iterations: int = 10,
+    cg_iterations: int = 50,
+    damping: float = 1e-4,
+    robust_delta: float = 2.0,
+):
+    """Distributed BA: the observations split into row blocks over the
+    ranks of `mesh` (a `parallel.mesh.Mesh`), the camera and point blocks
+    replicated, one `all_reduce(SUM)` per segment sum.
+
+    `problem` is replicated. The observations are padded to a multiple of
+    the world size with masked slots (zero Huber weight, zero
+    contribution), so the result equals `run_ba`'s up to the order of the
+    float sums. Returns `run_ba`'s tuple, the same on every rank."""
+    from densepoints_tpu_torch.parallel.mesh import (
+        all_reduce,
+        pad_to_multiple,
+        shard_patches,
+    )
+
+    M = problem.obs_xy.shape[0]
+    pad = pad_to_multiple(M, mesh.world_size) - M
+
+    def block(a):
+        if pad:
+            a = torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+        return shard_patches(mesh, a)
+
+    local = dataclasses.replace(
+        problem,
+        obs_point=block(problem.obs_point),
+        obs_view=block(problem.obs_view),
+        obs_xy=block(problem.obs_xy),
+        obs_mask=block(problem.obs_mask),
+    )
+    return _ba_core(local, max_outer_iterations, cg_iterations, damping,
+                    robust_delta,
+                    reduce=lambda x: all_reduce(mesh, x, "sum"))
 
 
 def reprojection_rmse(problem: BAProblem, R, C, points) -> torch.Tensor:

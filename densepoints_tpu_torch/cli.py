@@ -1,10 +1,15 @@
-"""`densify` command-line interface of the PyTorch port (single host).
+"""`densify` command-line interface of the PyTorch port.
 
     python -m densepoints_tpu_torch.cli -i scene.json -o cloud.ply \\
         [-s settings.json] [--profile scan] [--ascii] [--device cuda] \\
         [--platform cpu|gpu|cuda] [--mesh mesh.ply] \\
         [--checkpoint-dir DIR [--resume]] [--debug-dir DIR] \\
-        [--profile-dir DIR]
+        [--profile-dir DIR] [--distributed] \\
+        [--coordinator HOST:PORT --num-processes N --process-id I] \\
+        [--partition replicated|clustered [--halo-threshold T]]
+
+A multi-process job starts one process per rank with the same flags but
+`--process-id`; rank 0 alone writes the PLY and the mesh.
 """
 from __future__ import annotations
 
@@ -15,17 +20,6 @@ import sys
 
 from densepoints_tpu_torch.config import PipelineConfig, load_config
 from densepoints_tpu_torch.utils import log
-
-# Flags of the JAX CLI that the port does not carry yet (multi-host and
-# multi-device runs), with the ROADMAP item that brings them.
-_NOT_PORTED = {
-    "--distributed": "A.11",
-    "--coordinator": "A.11",
-    "--num-processes": "A.11",
-    "--process-id": "A.11",
-    "--halo-threshold": "A.11",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -73,10 +67,30 @@ def build_parser() -> argparse.ArgumentParser:
         help="write a torch.profiler Chrome trace of the run here",
     )
     p.add_argument(
+        "--distributed",
+        action="store_true",
+        help="run densify_multihost over the job's ranks (one rank without "
+        "--coordinator); with --coordinator/--num-processes/--process-id, "
+        "joins a torch.distributed job first",
+    )
+    p.add_argument("--coordinator", help="rank 0's host:port of the job")
+    p.add_argument(
+        "--num-processes", type=int, help="number of processes (ranks)"
+    )
+    p.add_argument("--process-id", type=int, help="this process's rank")
+    p.add_argument(
         "--partition", choices=["replicated", "clustered"],
         default="replicated",
-        help="image partitioning; only 'replicated' (one host holding the "
-        "whole image stack) is ported",
+        help="image partitioning: 'replicated' (every rank holds the whole "
+        "image stack) or 'clustered' (covisibility view clusters, each rank "
+        "holds its cluster's images + halo)",
+    )
+    p.add_argument(
+        "--halo-threshold",
+        type=float,
+        default=0.25,
+        help="clustered partitioning: minimum covisibility for a "
+        "non-member view to be held by a cluster's rank",
     )
     return p
 
@@ -107,21 +121,8 @@ def resolve_device(device: str | None, platform: str | None) -> str:
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
-    for arg in argv:
-        flag = arg.split("=", 1)[0]
-        if flag in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{flag} is not ported to densepoints_tpu_torch yet "
-                f"(ROADMAP {_NOT_PORTED[flag]})"
-            )
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device, args.platform)
-    if args.partition == "clustered":
-        raise NotImplementedError(
-            "--partition clustered is not ported to densepoints_tpu_torch "
-            "yet (ROADMAP A.11)"
-        )
     settings = {}
     if args.settings:
         with open(args.settings) as f:
@@ -143,12 +144,44 @@ def main(argv=None) -> int:
         config = config.replace(
             runtime=dataclasses.replace(config.runtime, **runtime_overrides))
 
+    from densepoints_tpu_torch.parallel import mesh as pmesh
+
+    if args.coordinator or args.num_processes:
+        pmesh.initialize_multihost(
+            coordinator_address=args.coordinator,
+            num_processes=args.num_processes,
+            process_id=args.process_id,
+            device=device,
+        )
+    mesh = pmesh.global_mesh(device)
+    if mesh.backend != "none":
+        device = mesh.device  # a rank's own: cuda:(rank % device_count)
+
     from densepoints_tpu_torch.io.scene import load_scene
     from densepoints_tpu_torch.pmvs import pipeline
 
     scene = load_scene(args.input, device=device)
     log.info("scene: %d views", scene.cameras.num_views)
-    result = pipeline.densify(scene, config, device=device)
+    if args.partition == "clustered":
+        from densepoints_tpu_torch.parallel.clustered import densify_clustered
+
+        result = densify_clustered(
+            scene, config, halo_threshold=args.halo_threshold, mesh=mesh
+        )
+    elif args.distributed or args.coordinator:
+        from densepoints_tpu_torch.parallel.multihost import densify_multihost
+
+        result = densify_multihost(scene, config, mesh=mesh)
+    else:
+        result = pipeline.densify(scene, config, device=device)
+    if mesh.rank == 0:
+        # Every rank holds the same cloud; one writer per output path.
+        _write_outputs(args, config, result, device)
+    pmesh.shutdown_multihost()
+    return 0
+
+
+def _write_outputs(args, config, result, device):
     result.save_ply(args.output, binary=not args.ascii)
     log.info("wrote %d points to %s", len(result.positions), args.output)
     if args.mesh:
@@ -161,7 +194,6 @@ def main(argv=None) -> int:
         write_mesh_ply(args.mesh, verts, faces)
         log.info("wrote mesh with %d vertices / %d faces to %s",
                  len(verts), len(faces), args.mesh)
-    return 0
 
 
 if __name__ == "__main__":

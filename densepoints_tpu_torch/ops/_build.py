@@ -2,7 +2,8 @@
 
 Every `csrc/*.cu` is compiled (sm_90a) into one shared library with a plain
 C interface under `_build/`, at first use: one nvcc per source, all started
-together, then one link. The file name carries a hash of all sources,
+together, then one link; a file lock makes processes that start together
+build once. The file name carries a hash of all sources,
 headers and flags, so an edit of any of them builds anew. Functions are
 bound with ctypes; `launch` sets the argument types (pointers and the
 stream as `c_void_p`, or ctypes would cut them to 32 bits).
@@ -10,6 +11,7 @@ stream as `c_void_p`, or ctypes would cut them to 32 bits).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -77,14 +79,23 @@ def build_library() -> Path:
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as objdir:
-        objects = [str(Path(objdir) / f"{src.stem}.o") for src in sources]
-        _run_together([[nvcc, *_NVCC_FLAGS, "-c", "-o", obj, str(src)]
-                       for src, obj in zip(sources, objects)])
-        _run_together([[nvcc, "-shared", "-o", str(tmp), *objects]])
-    os.replace(tmp, out)
+    # Processes that start together (the ranks of a job) build once: the
+    # first holds the lock while it builds, the others wait and load. The
+    # kernel releases a process's lock when the process ends, however it
+    # ends, so no lock outlives its holder.
+    with open(_BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as objdir:
+            objects = [str(Path(objdir) / f"{src.stem}.o")
+                       for src in sources]
+            _run_together([[nvcc, *_NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                           for src, obj in zip(sources, objects)])
+            _run_together([[nvcc, "-shared", "-o", str(tmp), *objects]])
+        os.replace(tmp, out)
     return out
 
 

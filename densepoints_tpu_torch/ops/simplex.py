@@ -6,8 +6,13 @@ lanes are frozen by masking. Per iteration there are exactly two batched
 objective evaluations (reflection, then a per-lane select of expansion /
 outside / inside contraction); the shrink step is replaced by accepting
 the contraction point. The loop stops when every lane has converged or
-the iteration cap is reached, a host check each iteration, so results
-depend on the batch composition.
+the iteration cap is reached, a host check each iteration. A converged
+lane is frozen and its ties keep their order under the stable sort, so
+when the loop stops changes no lane's result: what the batch composition
+can move is the objective's rounding by batch shape. With a `mesh`, each
+rank holds a row block of the batch and the check is one `all_reduce` of
+a flag per iteration: every rank runs until the whole (global) batch has
+converged, as the JAX loop's predicate over the global batch does.
 """
 from __future__ import annotations
 
@@ -28,13 +33,18 @@ def nelder_mead(
     init_step: torch.Tensor,
     max_iterations: int = 500,
     tolerance: float = 1e-4,
+    mesh=None,
 ):
     """Minimize f over a batch.
 
     f: (B, K, D) -> (B, K) batched objective; lane b always refers to the
       same problem instance. x0: (B, D); init_step: (D,).
+    mesh: a `parallel.mesh.Mesh` when x0 is this rank's row block of a
+      batch split over ranks; the early exit then waits for every rank.
     Returns (x_best (B, D), f_best (B,), iterations_used (B,)).
     """
+    if mesh is not None:
+        from densepoints_tpu_torch.parallel.mesh import all_true
     B, D = x0.shape
     offsets = torch.cat(
         [x0.new_zeros((1, D)), torch.diag(init_step.to(x0))], dim=0
@@ -45,7 +55,10 @@ def nelder_mead(
     iters = torch.zeros(B, dtype=torch.int32, device=x0.device)
 
     for _ in range(max_iterations):
-        if bool(done.all()):
+        if mesh is None:
+            if bool(done.all()):
+                break
+        elif all_true(mesh, done.all()):
             break
         order = torch.argsort(fvals, dim=1, stable=True)
         verts = torch.take_along_dim(verts, order[:, :, None], dim=1)

@@ -47,7 +47,9 @@ __all__ = [
     "photometric_objective",
     "photometric_objective_paged",
     "filter_by_error",
+    "filter_by_error_once",
     "optimize_patches",
+    "optimize_patches_once",
 ]
 
 
@@ -257,8 +259,19 @@ def photometric_objective_paged(
     return f
 
 
-def _sliced(fn, images, cameras, state: PatchState, texture_size, config):
-    """Run a per-patch stage over `max_refine_batch` slices (memory bound)."""
+def _sliced(fn, images, cameras, state: PatchState, texture_size, config,
+            mesh=None):
+    """Run a per-patch stage over `max_refine_batch` slices (memory bound).
+
+    With a `mesh`, `state` is the whole (replicated) batch: slices are cut
+    over it with a width rounded up to a multiple of the world size, the
+    last one padded with zeroed dead lanes, each rank runs its row block of
+    a slice (`fn(..., mesh)`) and an `all_gather` puts the slice together
+    again. The slices, and so the batches Nelder-Mead's exit couples, are
+    the same for every world size."""
+    if mesh is not None:
+        return _sliced_over_mesh(fn, images, cameras, state, texture_size,
+                                 config, mesh)
     B = state.capacity
     mb = config.max_refine_batch
     if mb <= 0 or B <= mb:
@@ -269,6 +282,39 @@ def _sliced(fn, images, cameras, state: PatchState, texture_size, config):
         for lo in range(0, B, mb)
     ]
     return PatchState.concatenate(outs)
+
+
+def zero_pad(state: PatchState, capacity: int) -> PatchState:
+    """`state` followed by zeroed dead lanes up to `capacity`."""
+    pad = capacity - state.capacity
+    if pad <= 0:
+        return state
+    return state.map(lambda a: torch.cat(
+        [a, a.new_zeros((pad,) + tuple(a.shape[1:]))]))
+
+
+def _sliced_over_mesh(fn, images, cameras, state, texture_size, config,
+                      mesh):
+    from densepoints_tpu_torch.parallel.mesh import (
+        all_gather,
+        pad_to_multiple,
+        shard_patches,
+    )
+
+    B = state.capacity
+    if B == 0:
+        return state
+    mb = config.max_refine_batch
+    width = pad_to_multiple(B if mb <= 0 or B <= mb else mb,
+                            mesh.world_size)
+    outs = []
+    for lo in range(0, B, width):
+        n = min(width, B - lo)
+        part = zero_pad(state.map(lambda a: a[lo : lo + n]), width)
+        block = part.map(lambda a: shard_patches(mesh, a))
+        out = fn(images, cameras, block, texture_size, config, mesh=mesh)
+        outs.append(out.map(lambda a: all_gather(mesh, a)[:n]))
+    return outs[0] if len(outs) == 1 else PatchState.concatenate(outs)
 
 
 def _check_impl(impl: str):
@@ -290,15 +336,21 @@ def filter_by_error(
     state: PatchState,
     texture_size: int,
     config: OptimizeConfig = OptimizeConfig(),
+    mesh=None,
 ) -> PatchState:
-    """NCC visibility pruning + patch rejection, in slices."""
+    """NCC visibility pruning + patch rejection, in slices (over the
+    ranks of `mesh`, when given: see `_sliced`)."""
     _check_impl(config.sampling_impl)
     return _sliced(
-        _filter_by_error_once, images, cameras, state, texture_size, config
+        filter_by_error_once, images, cameras, state, texture_size, config,
+        mesh,
     )
 
 
-def _filter_by_error_once(images, cameras, state, texture_size, config):
+def filter_by_error_once(images, cameras, state, texture_size, config,
+                         mesh=None):
+    """`filter_by_error` of one batch, unsliced; per patch, so `mesh` has
+    nothing to do here."""
     B, V = state.vis.shape
     scores, anchor, _ = allview_scores(
         images, cameras, state.position, state.normal, state.ref,
@@ -323,18 +375,25 @@ def optimize_patches(
     state: PatchState,
     texture_size: int,
     config: OptimizeConfig = OptimizeConfig(),
+    mesh=None,
 ) -> PatchState:
-    """Batched (depth, roll, pitch) refinement of every patch, in slices.
+    """Batched (depth, roll, pitch) refinement of every patch, in slices
+    (over the ranks of `mesh`, when given: see `_sliced`).
 
-    Slicing changes the batch each Nelder-Mead early exit couples over, so
-    results can differ (both validly converged) between slice widths."""
+    Slices change the batch shapes, whose roundings (the plain path's
+    batched products) can move results between slice widths."""
     _check_impl(config.sampling_impl)
     return _sliced(
-        _optimize_patches_once, images, cameras, state, texture_size, config
+        optimize_patches_once, images, cameras, state, texture_size, config,
+        mesh,
     )
 
 
-def _optimize_patches_once(images, cameras, state, texture_size, config):
+def optimize_patches_once(images, cameras, state, texture_size, config,
+                          mesh=None):
+    """`optimize_patches` of one batch, unsliced. With `mesh`, `state` is
+    this rank's row block and Nelder-Mead exits when every rank's lanes
+    have converged."""
     f = photometric_objective_paged(
         images, cameras, state.position, state.normal, state.ref,
         state.vis, texture_size,
@@ -362,6 +421,7 @@ def _optimize_patches_once(images, cameras, state, texture_size, config):
     x_best, _, _ = nelder_mead(
         f, x0, init_step,
         max_iterations=config.max_iterations, tolerance=config.tolerance,
+        mesh=mesh,
     )
     pos, nrm = unparametrize(
         x_best, state.position, state.normal, cameras.C[state.ref]

@@ -109,6 +109,29 @@ def _claim_rounds(cell_ids, active, prio, fill, K: int, n_cells: int):
     return won
 
 
+def _assign_slots(write, cell_ids, prio, fill, K: int, n_cells: int):
+    """Accepted winners take successive free slots of their cell, in
+    priority order: the K claim rounds replayed over the writes only.
+    Returns slot_of (B, V) int64."""
+    B = cell_ids.shape[0]
+    slot_of = torch.zeros(write.shape, dtype=torch.int64,
+                          device=cell_ids.device)
+    next_slot = torch.cat([fill, fill.new_zeros((1,))])
+    assigned = torch.zeros_like(write)
+    for _ in range(K):
+        a = write & ~assigned
+        sc = torch.where(a, cell_ids, n_cells)
+        claim = _scatter_min(n_cells + 1, sc, torch.where(a, prio, B), B)
+        pick = a & (claim[sc] == prio)
+        slot_of = torch.where(pick, next_slot[sc], slot_of)
+        assigned = assigned | pick
+        next_slot = next_slot.index_add(
+            0, torch.where(pick, cell_ids, n_cells).reshape(-1),
+            pick.reshape(-1).to(next_slot.dtype),
+        )
+    return slot_of
+
+
 def prescreen_candidates(
     grids: OccupancyGrids,
     cell_ids: torch.Tensor,
@@ -168,23 +191,8 @@ def bulk_try_insert(
     won = _claim_rounds(cell_ids, active, prio, fill, K, n_cells)
     accepted = won.sum(dim=1) >= min_grids
 
-    # Accepted winners take successive free slots of their cell, in
-    # priority order: replay the K rounds over the writes only.
     write = won & accepted[:, None]
-    slot_of = torch.zeros((B, V), dtype=torch.int64, device=cell_ids.device)
-    next_slot = torch.cat([fill, fill.new_zeros((1,))])
-    assigned = torch.zeros_like(write)
-    for _ in range(K):
-        a = write & ~assigned
-        sc = torch.where(a, cell_ids, n_cells)
-        claim = _scatter_min(n_cells + 1, sc, torch.where(a, prio, B), B)
-        pick = a & (claim[sc] == prio)
-        slot_of = torch.where(pick, next_slot[sc], slot_of)
-        assigned = assigned | pick
-        next_slot = next_slot.index_add(
-            0, torch.where(pick, cell_ids, n_cells).reshape(-1),
-            pick.reshape(-1).to(next_slot.dtype),
-        )
+    slot_of = _assign_slots(write, cell_ids, prio, fill, K, n_cells)
 
     # Only the dropped sentinel index n_cells * K receives duplicate writes:
     # a real (cell, slot) has at most one writer.

@@ -8,12 +8,18 @@ seeds' cameras and multi-scale coarse-to-fine expansion (multiscale/).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from densepoints_tpu_torch.ba import BAProblem, reprojection_rmse, run_ba
+from densepoints_tpu_torch.ba import (
+    BAProblem,
+    reprojection_rmse,
+    run_ba,
+    run_ba_sharded,
+)
 from densepoints_tpu_torch.config import PipelineConfig
 from densepoints_tpu_torch.core.cameras import Cameras
 from densepoints_tpu_torch.io.ply import write_ply
@@ -62,9 +68,11 @@ class DensifyResult:
                   binary=binary)
 
 
-def _bundle_adjust(cameras: Cameras, points, obs, obs_mask, ba_config):
+def _bundle_adjust(cameras: Cameras, points, obs, obs_mask, ba_config,
+                   mesh=None):
     """Refine cameras + seed points from the matched tracks (ba/), on the
-    cameras' device. Returns (cameras, points (S, 3) numpy, RMSE px)."""
+    cameras' device. With `mesh`, the observations split over its ranks
+    (`run_ba_sharded`). Returns (cameras, points (S, 3) numpy, RMSE px)."""
     dev = cameras.device
     tp, tv = np.nonzero(obs_mask)
     problem = BAProblem(
@@ -77,7 +85,9 @@ def _bundle_adjust(cameras: Cameras, points, obs, obs_mask, ba_config):
         obs_xy=torch.as_tensor(obs[tp, tv], dtype=torch.float32, device=dev),
         obs_mask=torch.ones((len(tp),), dtype=torch.bool, device=dev),
     )
-    R, C, new_points, _ = run_ba(
+    solve = (run_ba if mesh is None
+             else functools.partial(run_ba_sharded, mesh=mesh))
+    R, C, new_points, _ = solve(
         problem,
         max_outer_iterations=ba_config.max_outer_iterations,
         cg_iterations=ba_config.cg_iterations,

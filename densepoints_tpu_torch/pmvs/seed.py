@@ -78,29 +78,8 @@ def _pair_chunk(n_keypoints: int) -> int:
     return max(1, min(32, _PAIR_CHUNK_BYTES // max(4 * n_keypoints**2, 1)))
 
 
-def generate_seed_points(
-    images: torch.Tensor,
-    cameras: Cameras,
-    config: MatchingConfig = MatchingConfig(),
-    pairs: np.ndarray | None = None,
-):
-    """Detect, match, track and triangulate -> (S, 3) seed points (host).
-
-    `config.matcher` selects the matching: "hamming_knn" (2-NN + Lowe
-    ratio) and "hamming_absolute" (1-NN under an absolute cutoff) match
-    BRIEF descriptors and filter along the epipolar line; "epipolar" takes
-    the keypoint closest to the line and "epipolar_all" the
-    `config.epipolar_topk` closest, consumed by one-hop track assembly.
-    Returns (points, obs, mask); obs/mask are the track observations."""
-    matcher = config.matcher
-    if matcher not in ("hamming_knn", "hamming_absolute", "epipolar",
-                       "epipolar_all"):
-        raise ValueError(f"unknown matcher {matcher!r}")
-    V = cameras.num_views
-    dev = images.device
-    if pairs is None:
-        pairs = covisibility_pairs(cameras, config.max_pairs_per_view)
-    xy, _, valid = detect_keypoints(
+def _detect(images: torch.Tensor, config: MatchingConfig):
+    return detect_keypoints(
         images,
         cell_size=config.keypoint_cell_size,
         max_per_cell=config.max_keypoints_per_cell,
@@ -110,18 +89,86 @@ def generate_seed_points(
         method=config.detector,
         fast_threshold=config.fast_threshold,
     )
+
+
+def _wants_descriptors(config: MatchingConfig) -> bool:
+    return config.matcher in ("hamming_knn", "hamming_absolute")
+
+
+def _describe(images, xy, config: MatchingConfig):
+    pattern = torch.as_tensor(
+        brief_pattern(config.descriptor_bits, config.descriptor_patch_radius),
+        device=images.device,
+    )
+    return compute_descriptors(images, xy, pattern)
+
+
+def _viewsharded_features(mesh, images: torch.Tensor, config: MatchingConfig):
+    """Detect (and, for the descriptor matchers, describe) with each rank
+    of `mesh` owning a slice of the views.
+
+    The stack is padded with blank views to a multiple of the world size
+    and each rank runs the front end on its contiguous slice; one
+    `all_gather` of the keypoints and descriptors (small beside the
+    images) makes them replicated, so matching and tracks stay those of
+    the single-process path. Returns (xy, resp, valid, desc or None,
+    [the shape of this rank's slice])."""
+    from densepoints_tpu_torch.parallel.mesh import (
+        all_gather,
+        pad_to_multiple,
+        shard_patches,
+    )
+
+    V = images.shape[0]
+    pad = pad_to_multiple(V, mesh.world_size) - V
+    if pad:
+        images = torch.cat(
+            [images, images.new_zeros((pad,) + tuple(images.shape[1:]))])
+    block = shard_patches(mesh, images)
+    out = list(_detect(block, config))
+    if _wants_descriptors(config):
+        out.append(_describe(block, out[0], config))
+    out = [all_gather(mesh, t)[:V] for t in out]
+    if len(out) == 3:
+        out.append(None)
+    return (*out, [tuple(block.shape)])
+
+
+def generate_seed_points(
+    images: torch.Tensor,
+    cameras: Cameras,
+    config: MatchingConfig = MatchingConfig(),
+    pairs: np.ndarray | None = None,
+    mesh=None,
+):
+    """Detect, match, track and triangulate -> (S, 3) seed points (host).
+
+    `config.matcher` selects the matching: "hamming_knn" (2-NN + Lowe
+    ratio) and "hamming_absolute" (1-NN under an absolute cutoff) match
+    BRIEF descriptors and filter along the epipolar line; "epipolar" takes
+    the keypoint closest to the line and "epipolar_all" the
+    `config.epipolar_topk` closest, consumed by one-hop track assembly.
+    With `mesh`, the per-view detection and description split over its
+    ranks (`_viewsharded_features`); everything after is unchanged.
+    Returns (points, obs, mask); obs/mask are the track observations."""
+    matcher = config.matcher
+    if matcher not in ("hamming_knn", "hamming_absolute", "epipolar",
+                       "epipolar_all"):
+        raise ValueError(f"unknown matcher {matcher!r}")
+    V = cameras.num_views
+    dev = images.device
+    if pairs is None:
+        pairs = covisibility_pairs(cameras, config.max_pairs_per_view)
+    desc = None
+    if mesh is not None:
+        xy, _, valid, desc, _ = _viewsharded_features(mesh, images, config)
+    else:
+        xy, _, valid = _detect(images, config)
     log.info(
         "detected keypoints per view: %s", valid.sum(dim=1).tolist()
     )
-    desc = None
-    if matcher in ("hamming_knn", "hamming_absolute"):
-        pattern = torch.as_tensor(
-            brief_pattern(
-                config.descriptor_bits, config.descriptor_patch_radius
-            ),
-            device=dev,
-        )
-        desc = compute_descriptors(images, xy, pattern)
+    if mesh is None and _wants_descriptors(config):
+        desc = _describe(images, xy, config)
     F = torch.as_tensor(
         fundamental_matrices_for_pairs(
             cameras.P.cpu().numpy().astype(np.float64), pairs
