@@ -7,6 +7,8 @@
     python3 chip_smoke.py --time-ncc
     python3 chip_smoke.py --profile-main
     python3 chip_smoke.py --kernel-resources
+    python3 chip_smoke.py --dtu
+    python3 chip_smoke.py --profile-dtu
 
 Phases, each printing its own lines; any failure exits non-zero and prints
 no result line:
@@ -97,7 +99,27 @@ no result line:
      solver's spread over 5 orders of its sums (at least 1e-3 px) of the
      single rank's. Each `[parallel]` line gives the rank's backend, K1
      launches, patches, radial error, stage seconds and the traffic of
-     its collectives. `--parallel` runs phases 10 and 12 alone.
+     its collectives. `--parallel` runs phases 10 and 12 alone;
+  13. the three end-to-end programs of `densepoints_tpu_torch.scripts`
+     through their `run`, each with every counter at 0 just before, at
+     the configurations of the JAX package's records (`[dtu]`): a,
+     `dtu_scale_run` at `DTU_r05.json`'s (49 views of 1600 x 1200, kp
+     8192, 6 per cell, 120 / 40 Nelder-Mead iterations, 25 score views,
+     grid_scale 8, 20 rounds; no depth cut); b, `dtu_layout_run` and c,
+     `occlusion_run` at their defaults (21 views of 800 x 600 through the
+     on-disk DTU tree, with nuisances). Each run prints its render,
+     stage and densify seconds, counts, K1 launches and plain calls, peak
+     allocation and quality, and its counts beside the JAX record's; it
+     fails if a stage raises, K1 is never launched, a plain scoring call
+     is made, or a quality gate set from the JAX record is missed (a:
+     exact median under one pixel footprint, 650 / 2900 mm, completeness
+     under 2 mm >= 0.95, >= 10,000 patches; b: exact median under 0.5 mm,
+     >= 1,500 patches; c: the occlusion filter's kept patches' median
+     distance to the surface union under 2 mm). `--dtu` runs phase 13
+     alone; `--profile-dtu` runs a under `torch.profiler` (key averages,
+     no trace file) and prints its device ops, device time, K1's time and
+     launches, the ten costliest kernels and the device-busy share of
+     `densify`'s wall.
 Each kernel's time stands beside its bound: the larger of the bytes it must
 move (every input read once, every output written once; of the image stack
 no more than the 4 taps of every texel this run's data samples) over
@@ -2017,6 +2039,178 @@ def phase_parallel(device, main_patches, ba_turned_rmse):
     return launches
 
 
+# Phase 13: the three end-to-end programs of the port at the JAX package's
+# recorded configurations. Run a is `DTU_r05.json`'s: 49 views of 1600 x
+# 1200 and its 20 rounds. Views and resolution are never cut; should the
+# script outgrow its time, `--max-rounds` (depth) is the one to cut.
+DTU_RUNS = (
+    # label, program, flags, the JAX package's record of the configuration
+    ("a", "dtu_scale_run",
+     ["--kp", "8192", "--max-per-cell", "6", "--nm-iters", "120",
+      "--expand-nm-iters", "40", "--score-views", "25", "--grid-scale", "8",
+      "--max-rounds", "20"], "DTU_r05.json"),
+    ("b", "dtu_layout_run", [], "DTU_LAYOUT_r04.json"),
+    ("c", "occlusion_run", [], "OCCLUSION_r05.json"),
+)
+# Quality gates, each from the JAX package's record of the same run (its
+# value in the comment); quality, not speed.
+DTU_PIXEL_MM = 650.0 / 2900.0  # run a's pixel footprint, 0.224 mm
+DTU_GATES = {
+    # exact median < one pixel footprint (0.1636), completeness under 2 mm
+    # >= 0.95 (0.9994), final patches >= 10,000 (16,595)
+    "a": lambda art: [
+        ("accuracy_exact_median",
+         art["quality_mm"]["accuracy_exact_median"], "<", DTU_PIXEL_MM),
+        ("completeness_frac_under",
+         art["quality_mm"]["completeness_frac_under"], ">=", 0.95),
+        ("patches", art["patches"], ">=", 10_000)],
+    # exact median < 0.5 mm (0.1849), final patches >= 1,500 (2,526)
+    "b": lambda art: [
+        ("accuracy_exact_median",
+         art["quality_mm"]["accuracy_exact_median"], "<", 0.5),
+        ("patches", art["patches"], ">=", 1_500)],
+    # the occlusion filter's kept patches: median distance to the surface
+    # union < 2 mm (0.5406)
+    "c": lambda art: [
+        ("kept_gt_dist_median",
+         art["occlusion_filter"]["kept"].get("gt_dist_median",
+                                              float("inf")), "<", 2.0)],
+}
+
+
+def _dtu_counts(art):
+    """The counts a run and a JAX record share, by name."""
+    counts = dict(art.get("counters", {}))
+    counts["patches"] = art["patches"]
+    occ = art.get("occlusion_filter")
+    if occ:
+        counts["expanded_patches"] = occ["expanded_patches"]
+        counts["occlusion_killed"] = occ["killed"]["count"]
+    return counts
+
+
+def dtu_run(label, device, profile=False):
+    """One program of phase 13 through its `run`, every counter at 0 just
+    before; returns (artifact, K1 launches, plain calls, peak bytes, wall
+    seconds, the profiler or None)."""
+    import importlib
+
+    import torch
+
+    _, name, flags, _ = next(r for r in DTU_RUNS if r[0] == label)
+    program = importlib.import_module(f"densepoints_tpu_torch.scripts.{name}")
+    args = program.parse_args(flags + ["--device", device])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    prof = None
+    t0 = time.perf_counter()
+    try:
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as profiler
+
+            with profiler(activities=[ProfilerActivity.CUDA]) as prof:
+                artifact = program.run(args)
+                torch.cuda.synchronize()
+        else:
+            artifact = program.run(args)
+    except SmokeFailure:
+        raise
+    except Exception as exc:  # a stage that raises fails the phase
+        raise SmokeFailure(f"[dtu] {label} ({name}) raised "
+                           f"{type(exc).__name__}: {exc}") from exc
+    wall = time.perf_counter() - t0
+    launches, plain = _read_counters()
+    return (artifact, launches["allview_ncc"], sum(plain.values()),
+            torch.cuda.max_memory_allocated(), wall, prof)
+
+
+def _dtu_check(label, artifact, launches, plain, peak, wall):
+    _, name, _, record = next(r for r in DTU_RUNS if r[0] == label)
+    counts = _dtu_counts(artifact)
+    line = {
+        "render_s": artifact["render_seconds"],
+        "layout_s": artifact.get("layout_seconds"),
+        "densify_s": artifact["densify_seconds"],
+        "run_s": round(wall, 2),
+        "stage_s": artifact["stage_seconds"],
+        "counts": counts,
+        "allview_ncc_launches": launches, "plain_calls": plain,
+        "max_memory_allocated": peak,
+        "quality_mm": artifact["quality_mm"],
+    }
+    if "occlusion_filter" in artifact:
+        line["occlusion_filter"] = artifact["occlusion_filter"]
+    print(f"[dtu] {label} {name}: {json.dumps(line)}", flush=True)
+    want = json.loads((ROOT / record).read_text())
+    want_counts = _dtu_counts(want)
+    shared = {k: (v, want_counts[k], round(100.0 * (v - want_counts[k])
+                                            / want_counts[k], 2))
+              for k, v in counts.items()
+              if want_counts.get(k)}
+    print(f"[dtu] {label} against {record} (port, JAX record, diff %, for "
+          f"information): {json.dumps(shared)}", flush=True)
+    check(launches > 0, f"[dtu] {label}: the all-views kernel was never "
+          "launched")
+    check(plain == 0, f"[dtu] {label}: {plain} plain scoring calls")
+    ops = {"<": lambda x, y: x < y, ">=": lambda x, y: x >= y}
+    for gate, value, op, limit in DTU_GATES[label](artifact):
+        check(ops[op](value, limit),
+              f"[dtu] {label}: {gate} {value} is not {op} {limit:g}")
+
+
+def phase_dtu(device):
+    """Phase 13: the three end-to-end programs on the card at the JAX
+    package's recorded configurations; returns the K1 launches of each
+    run by label."""
+    launches = {}
+    for label, *_ in DTU_RUNS:
+        artifact, k1, plain, peak, wall, _ = dtu_run(label, device)
+        _dtu_check(label, artifact, k1, plain, peak, wall)
+        launches[label] = k1
+    return launches
+
+
+def dtu_only(device):
+    """The `--dtu` mode: phase 13 alone, after the device and the build."""
+    print(json.dumps({"allview_ncc_launches_dtu": phase_dtu(device)}),
+          flush=True)
+
+
+def profile_dtu(device):
+    """The `--profile-dtu` mode: run a of phase 13 under `torch.profiler`
+    (key averages only, no trace file); one JSON line of its device ops,
+    device time, K1's time and launches, the ten costliest kernels and the
+    device-busy share of `densify`'s wall and of the run's."""
+    import torch
+
+    artifact, k1, plain, peak, wall, prof = dtu_run("a", device, True)
+    _dtu_check("a", artifact, k1, plain, peak, wall)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.device_time_total for e in kernels) / 1e3
+    k1_events = [e for e in kernels if "allview_ncc_kernel" in e.key]
+    top = sorted(kernels, key=lambda e: e.device_time_total, reverse=True)
+    densify_s = artifact["densify_seconds"]
+    print(json.dumps({
+        "root": str(ROOT), "card": torch.cuda.get_device_name(0),
+        "device_ops": sum(e.count for e in kernels),
+        "device_ms": round(device_ms, 3),
+        "allview_ncc": {
+            "ms": round(sum(e.device_time_total for e in k1_events) / 1e3,
+                        3),
+            "events": sum(e.count for e in k1_events), "launches": k1},
+        "top10": [{"name": e.key[:120], "count": e.count,
+                   "ms": round(e.device_time_total / 1e3, 3)}
+                  for e in top[:10]],
+        "densify_s": densify_s, "run_s": round(wall, 2),
+        "busy_share_of_densify": round(device_ms / 1e3 / densify_s, 4),
+        "busy_share_of_run": round(device_ms / 1e3 / wall, 4),
+        "stage_s": artifact["stage_seconds"],
+        "patches": artifact["patches"],
+    }), flush=True)
+
+
 KERNELS = (
     # name, source, TPU kernel it replaces, shape reported in the record
     ("allview_ncc", "densepoints_tpu_torch/csrc/allview_ncc.cu",
@@ -2329,7 +2523,8 @@ def main() -> int:
     modes = {"--time-allview": time_allview, "--time-window": time_window,
              "--time-ncc": time_ncc, "--profile-main": profile_main,
              "--kernel-resources": kernel_resources,
-             "--parallel": parallel_only}
+             "--parallel": parallel_only, "--dtu": dtu_only,
+             "--profile-dtu": profile_dtu}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         try:
             phase_device()
@@ -2358,6 +2553,7 @@ def main() -> int:
          main_patches) = phase_main_path("cuda")
         ba_turned = phase_rest_of_pipeline("cuda", main_pts, main_times)
         parallel = phase_parallel("cuda", main_patches, ba_turned)
+        dtu = phase_dtu("cuda")
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
@@ -2380,7 +2576,8 @@ def main() -> int:
             "bound_ms": shown["bound_ms"],
             "bound_by": shown["bound_by"],
             # Phase 12's runs, every rank's own count (K1 alone).
-            **({"launches_parallel": parallel}
+            # Phase 13's runs a, b and c (K1 alone).
+            **({"launches_parallel": parallel, "launches_dtu": dtu}
                if kernel == "allview_ncc" else {}),
             # No single PyTorch call computes a projective warp + NCC, a
             # clamped row-wise NCC, or window-relative sampling with zeros
