@@ -9,6 +9,7 @@
     python3 chip_smoke.py --kernel-resources
     python3 chip_smoke.py --dtu
     python3 chip_smoke.py --profile-dtu
+    python3 chip_smoke.py --measure
 
 Phases, each printing its own lines; any failure exits non-zero and prints
 no result line:
@@ -119,7 +120,29 @@ no result line:
      alone; `--profile-dtu` runs a under `torch.profiler` (key averages,
      no trace file) and prints its device ops, device time, K1's time and
      launches, the ten costliest kernels and the device-busy share of
-     `densify`'s wall.
+     `densify`'s wall;
+  14. the measurement programs of `densepoints_tpu_torch.scripts`
+     (`[measure]`), each through its `run` at its own defaults (the JAX
+     package's configurations; nothing is cut), every counter at 0 just
+     before: `expand_profile` (one expansion round of the bench sphere,
+     phase by phase, cold and warm), `kernel_bench` (K2 alone against the
+     full slot-scoring pass), `kernel_paged_bench` (the all-views pass
+     against the chunked one at three shapes), `kernel_roofline` (K1 and
+     K2 against their bounds at the refine and DTU shapes),
+     `prescreen_ab` (the pre-screen's three modes on the sphere),
+     `scaling_overhead` (the multi-process driver's overhead counters on
+     one rank and the model built on them), `scaling_measure` (jobs of 1,
+     2 and 4 `scaling_worker` processes sharing the card) and
+     `scaling_bench` (the distributed refine step at 1 rank). Each prints
+     its record; the phase fails if a program raises, K1 (or K2 where the
+     program scores with it) is never launched, a plain scoring call is
+     made (the workers' counts for the two programs that run workers), a
+     program writes into the checkout or the working directory (a file
+     added or changed outside the kernels' build and bytecode caches; the
+     `--out` of the run is never written by `run`), a number of a record
+     is not finite, or `prescreen_ab`'s mode `off` ends more than 10% off
+     `PRESCREEN_r05.json`'s 4491 final patches. `--measure` runs phase 14
+     alone.
 Each kernel's time stands beside its bound: the larger of the bytes it must
 move (every input read once, every output written once; of the image stack
 no more than the 4 taps of every texel this run's data samples) over
@@ -178,20 +201,6 @@ WINDOW_SCORE_ATOL = 1e-4
 WINDOW_TEXTURE_ATOL = 1e-3
 GRAD_VS_FULL_ATOL = 1e-3  # left + fx * grad vs the two-tap blend, f32
 SPHERE_RADIUS = 150.0
-# f32 operations the function needs for one warped texel, whatever a kernel
-# body spends: the projection is affine in the texel's (column, row) before
-# the division, h = A + c B + r C with A, B, C fixed per (patch, view), so
-# 6 fused multiply-adds (12) and 2 divisions (14 in all); clamps and floors
-# 10; bilinear weights and taps 15; mean / variance / covariance sums 8.
-TEXEL_FLOPS = 47
-# Per texture, A, B and C: three 3 x 3 products with the view's K R (45),
-# one subtraction of the centre (3) and two scalings by 2 / k (6).
-TEXTURE_FLOPS = 54
-# Per patch, the frame (sx, sy): a cross product (9), p + x_axis (3), two
-# decomposed projections of 35 (3 subtractions, two 3 x 3 products, 2
-# divisions), their difference and its norm (6), the clamp and the division
-# of the scale (2) and two scalings (6).
-PATCH_FLOPS = 96
 # Row-wise NCC, per element: two sums, two centrings, three products and
 # three sums (10); the mask adds five multiplies and a count (15).
 NCC_ELEMENT_FLOPS = {False: 10, True: 15}
@@ -237,112 +246,9 @@ def phase_build():
     print(f"[build] {lib.relative_to(ROOT)} in {dt:.2f} s", flush=True)
 
 
-def _nbytes(*tensors):
-    from densepoints_tpu_torch.scripts import _timing
-
-    return _timing.nbytes(*tensors)
-
-
-def _bound(nbytes, flops):
-    """(bound_ms, bound_by): the least time the card could take
-    (`scripts._timing.bound`)."""
-    from densepoints_tpu_torch.scripts import _timing
-
-    return _timing.bound(nbytes, flops)
-
-
-def _warp_bound(images, others, patches, textures, k):
-    """Bound of a warp+NCC function that framed `patches` patches and
-    sampled `textures` k x k textures: of the image stack it must read no
-    more than 4 f32 taps per texel, and no more than the stack once;
-    `others` are the remaining inputs (cameras, position, normal, reference
-    view, visibility or slots) and the outputs, moved once each."""
-    image_bytes = min(_nbytes(images), textures * k * k * 4 * 4)
-    flops = (patches * PATCH_FLOPS
-             + textures * (k * k * TEXEL_FLOPS + TEXTURE_FLOPS))
-    return _bound(image_bytes + _nbytes(*others), flops)
-
-
 def _result(err, ms, bound):
     return {"max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
             "bound_ms": bound[0], "bound_by": bound[1]}
-
-
-def _look_at(C):
-    import numpy as np
-
-    z = -C / np.linalg.norm(C)
-    x = np.cross([0.0, 1.0, 0.0], z)
-    x /= np.linalg.norm(x)
-    return np.stack([x, np.cross(z, x), z])
-
-
-def _cameras(Cs, focal, W, H, device):
-    import numpy as np
-
-    from densepoints_tpu_torch.core.cameras import Cameras
-
-    K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]])
-    P = []
-    for C in Cs:
-        R = _look_at(C)
-        P.append(K @ np.concatenate([R, (-R @ C)[:, None]], 1))
-    return Cameras.from_projection_matrices(np.stack(P), W, H, device=device)
-
-
-def refine_inputs(device):
-    """bench.py's refine shape + mixed, no-visibility and off-frustum rows."""
-    import numpy as np
-    import torch
-
-    rng = np.random.default_rng(0)
-    V, H, W, B = 8, 480, 640, 4096
-    Cs = []
-    for i in range(V):
-        ang = (i - (V - 1) / 2) * 0.12
-        Cs.append(np.array([6.0 * np.sin(ang), 0.2 * np.sin(2 * i),
-                            -6.0 * np.cos(ang)]))
-    cams = _cameras(Cs, 500.0, W, H, device)
-    images = rng.uniform(0, 255, (V, H, W)).astype(np.float32)
-    xy = rng.uniform(-1.0, 1.0, (B, 2))
-    pos = np.concatenate([xy, np.zeros((B, 1))], 1).astype(np.float32)
-    nrm = np.tile([0.0, 0.0, 1.0], (B, 1)).astype(np.float32)
-    ref = np.zeros((B,), np.int64)
-    vis = np.ones((B, V), bool)
-    vis[:, 0] = False
-    mixed = slice(0, 256)
-    ref[mixed] = rng.integers(0, V, 256)
-    vis[mixed] = rng.uniform(size=(256, V)) > 0.3
-    vis[np.arange(256), ref[mixed]] = False
-    vis[256] = False  # no visible view at all
-    pos[257:261] = [50.0, 50.0, 0.0]  # off every frustum
-    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    return cams, t(images), t(pos), t(nrm), t(ref), t(vis)
-
-
-def dtu_inputs(device):
-    """49 views of 1600 x 1200 on a 7 x 7 grid, 16384 patches, ~25 visible."""
-    import numpy as np
-    import torch
-
-    rng = np.random.default_rng(1)
-    V, H, W, B = 49, 1200, 1600, 16384
-    yaws = np.linspace(-0.45, 0.45, 7)
-    pitches = np.linspace(-0.225, 0.225, 7)
-    Cs = [np.array([6.0 * np.sin(y), 6.0 * np.sin(p),
-                    -6.0 * np.cos(y) * np.cos(p)])
-          for p in pitches for y in yaws]
-    cams = _cameras(Cs, 1500.0, W, H, device)
-    gen = torch.Generator(device=device).manual_seed(1)
-    images = torch.rand((V, H, W), generator=gen, device=device) * 255.0
-    xy = rng.uniform(-1.0, 1.0, (B, 2))
-    pos = np.concatenate([xy, np.zeros((B, 1))], 1).astype(np.float32)
-    nrm = np.tile([0.0, 0.0, 1.0], (B, 1)).astype(np.float32)
-    ref = np.full((B,), 24, np.int64)
-    vis = rng.uniform(size=(B, V)) < 0.51
-    vis[:, 24] = False
-    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    return cams, images, t(pos), t(nrm), t(ref), t(vis)
 
 
 def _corner_margin(cams, pos, frames, b, v):
@@ -456,6 +362,7 @@ def compare_kernel(label, cams, images, pos, nrm, ref, vis, k):
     """Kernel vs plain on one input set, then the times of both."""
     from densepoints_tpu_torch.ops import allview_ncc
     from densepoints_tpu_torch.ops.warp import patch_frames
+    from densepoints_tpu_torch.scripts import _timing
 
     args = (images, cams, pos, nrm, ref, vis, k)
     sk, ak, okk, err, scored, flips = check_kernel(
@@ -473,10 +380,8 @@ def compare_kernel(label, cams, images, pos, nrm, ref, vis, k):
     }
     ms = _time_runs(runs)
     B, V = vis.shape
-    # Textures this run's data makes the kernel sample: one per scored slot
-    # and one per valid anchor.
-    textures = int((sk != -1).sum()) + int(okk.sum())
-    bound = _warp_bound(images, (*kargs[1:-1], sk, ak, okk), B, textures, k)
+    bound = _timing.bound(*_timing.allview_counts(
+        images, cams, pos, nrm, ref, vis, (sk, ak, okk), k))
     print(f"[allview_ncc] {label}: B={B} V={V} k={k} slots={int(vis.sum())} "
           f"scored={scored} max_abs_err={err:.3e} "
           f"sentinel_flips={flips} kernel_ms={ms['kernel']:.4f} "
@@ -537,12 +442,13 @@ def compare_ncc_pairs(N, L, masked, device):
     err = float((got - want).abs().max())
     check(err <= NCC_ATOL, f"{label}: max |kernel - plain| {err:.3e}")
     inputs = (a, b) if mask is None else (a, b, mask)
-    bound = _bound(_nbytes(*inputs, got), N * L * NCC_ELEMENT_FLOPS[masked])
+    bound = _timing.bound(_timing.nbytes(*inputs, got),
+                          N * L * NCC_ELEMENT_FLOPS[masked])
     # The kernel's time in the record is the rotated one: one set under the
     # L2 cache's size is partly served from L2, under the DRAM bound.
     sets = [(a, b, mask)] + [
         _ncc_inputs(N, L, masked, device, seed=N + L + s)
-        for s in range(2, _timing.rotation(_nbytes(*inputs),
+        for s in range(2, _timing.rotation(_timing.nbytes(*inputs),
                                            _timing.l2_bytes(device)) + 1)]
     kernels = [lambda s=s: ncc.ncc_pairs_cuda(*s) for s in sets]
     ms = _time_runs({"b2b": kernels[0],
@@ -670,6 +576,7 @@ def compare_slot_kernel(label, cams, images, pos, nrm, ref, view_ids, ok, k,
     """The slot kernel vs plain on one slot table, then the times of both."""
     from densepoints_tpu_torch.ops import warp_ncc
     from densepoints_tpu_torch.ops.warp import patch_frames
+    from densepoints_tpu_torch.scripts import _timing
 
     args = (images, cams, pos, nrm, ref, view_ids, ok, k)
     sk, err, scored, flips = check_slot_kernel(
@@ -687,8 +594,8 @@ def compare_slot_kernel(label, cams, images, pos, nrm, ref, view_ids, ok, k,
         }, plain_reps),
     }
     B, M = view_ids.shape
-    textures = int((sk != -1).sum())  # slot 0 included
-    bound = _warp_bound(images, (*kargs[1:-1], sk), B, textures, k)
+    bound = _timing.bound(*_timing.slot_counts(
+        images, cams, pos, nrm, ref, view_ids, ok, sk, k))
     print(f"[slot_ncc] {label}: B={B} M={M} k={k} slots={int(ok.sum())} "
           f"scored={scored} max_abs_err={err:.3e} "
           f"sentinel_flips={flips} kernel_ms={ms['kernel']:.4f} "
@@ -851,6 +758,8 @@ def small_rig(device, V, B, seed):
     import numpy as np
     import torch
 
+    from densepoints_tpu_torch.scripts import _rigs
+
     rng = np.random.default_rng(seed)
     H, W = 120, 160
     Cs = []
@@ -858,7 +767,7 @@ def small_rig(device, V, B, seed):
         ang = (i - (V - 1) / 2) * (0.9 / max(V, 8))
         Cs.append(np.array([6.0 * np.sin(ang), 0.2 * np.sin(2 * i),
                             -6.0 * np.cos(ang)]))
-    cams = _cameras(Cs, 125.0, W, H, device)
+    cams = _rigs.cameras(Cs, 125.0, W, H, device)
     images = rng.uniform(0, 255, (V, H, W)).astype(np.float32)
     xy = rng.uniform(-1.0, 1.0, (B, 2))
     pos = np.concatenate([xy, np.zeros((B, 1))], 1).astype(np.float32)
@@ -978,6 +887,7 @@ def phase_kernels(device):
     import torch
 
     from densepoints_tpu_torch.scripts import (
+        _rigs,
         kernel_ablate,
         kernel_paged_ablate,
     )
@@ -1009,7 +919,7 @@ def phase_kernels(device):
             results["ncc_pairs"][key] = compare_ncc_pairs(N, L, masked, device)
     results["ncc_pairs"]["awkward"] = check_ncc_pairs_shapes(device)
     torch.cuda.empty_cache()
-    refine = refine_inputs(device)
+    refine = _rigs.refine_inputs(device)
     (ids, ok), = _slot_tables("refine", refine[5], 8)  # V = 8: one chunk
     for k in (11, 16):
         results["allview_ncc"][f"refine_k{k}"] = compare_kernel(
@@ -1019,7 +929,7 @@ def phase_kernels(device):
     check_no_torch_op_before_launch(refine, ids, ok)
     del refine
     phase_awkward_shapes(device, results)
-    dtu = dtu_inputs(device)
+    dtu = _rigs.dtu_inputs(device)
     results["allview_ncc"]["dtu_k16"] = compare_kernel("dtu k=16", *dtu, 16)
     chunks = _slot_tables("dtu", dtu[5], 16)
     check(len(chunks) == 4 and chunks[0][0].shape == (dtu[5].shape[0], 16),
@@ -1104,8 +1014,9 @@ def phase_slice_path(device):
 
     from densepoints_tpu_torch import pmvs
     from densepoints_tpu_torch.ops.simplex import nelder_mead
+    from densepoints_tpu_torch.scripts import _rigs
 
-    refine = refine_inputs(device)
+    refine = _rigs.refine_inputs(device)
     cams, images, pos, nrm, ref, vis = refine
     refine = (images, cams, pos, nrm, ref, vis)
     _reset_counters()
@@ -1154,7 +1065,7 @@ def phase_slice_path(device):
           f"iterations used max {int(iters.max())}", flush=True)
     del refine, f_auto
     # (b) the objectives at the DTU shape: 4 chunks of 16 slots.
-    cams, images, pos, nrm, ref, vis = dtu_inputs(device)
+    cams, images, pos, nrm, ref, vis = _rigs.dtu_inputs(device)
     _objectives_agree("dtu", (images, cams, pos, nrm, ref, vis), 16, 16, 2,
                       seed=3)
     launches, plain = _read_counters()
@@ -1663,10 +1574,9 @@ def phase_rest_of_pipeline(device, main_pts, main_times):
 
 
 # Phase 12: every rank of a job is a child process of this script
-# (--parallel-rank SPEC), killed with the others if one runs past this.
+# (`python -m chip_smoke --parallel-rank SPEC`), killed with the others if
+# one fails or the job runs past this.
 PARALLEL_CHILD_S = 300
-# One host: the ranks meet on the loopback interface.
-PARALLEL_ENV = {"NCCL_SOCKET_IFNAME": "lo", "GLOO_SOCKET_IFNAME": "lo"}
 # Clustered partitioning with a halo of views covisible above 0.5: each of
 # the sphere's two clusters holds 9 of its 12 views.
 PARALLEL_HALO = 0.5
@@ -1676,52 +1586,30 @@ BA_RMSE_ATOL = 1e-3  # pixels, sharded vs single-rank BA
 BA_ORDERS = 5  # single-rank BA in the observations' order and 4 shuffles
 
 
-def _free_port():
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _run_ranks(label, world, spec, tmp):
-    """The `world` ranks of one job, each this script with --parallel-rank;
-    waits for all within PARALLEL_CHILD_S seconds (every rank is killed if
-    one exceeds it) and fails if a rank fails. Returns each rank's record
+    """The `world` ranks of one job, each this script with --parallel-rank
+    (`scripts._jobs.run_ranks`: every rank is killed if one fails or the
+    job runs past PARALLEL_CHILD_S seconds). Returns each rank's record
     (its last `[parallel-rank]` JSON line)."""
-    import os
+    from densepoints_tpu_torch.scripts import _jobs
 
-    port = _free_port()
-    env = dict(os.environ, **PARALLEL_ENV)
-    procs = []
-    for rank in range(world):
+    def rank_args(rank, port):
         child = dict(spec, rank=rank, world=world, port=port,
                      out=str(tmp / f"{label}.{rank}.npz"))
-        procs.append(subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-rank",
-             json.dumps(child)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=env))
-    deadline = time.monotonic() + PARALLEL_CHILD_S
-    logs = []
+        return ["--parallel-rank", json.dumps(child)]
+
     try:
-        for proc in procs:
-            logs.append(proc.communicate(
-                timeout=max(deadline - time.monotonic(), 1.0))[0])
-    except subprocess.TimeoutExpired:
-        for proc in procs:
-            proc.kill()
-        for proc in procs:
-            proc.communicate()
-        raise SmokeFailure(f"[parallel] {label}: a rank ran past "
-                           f"{PARALLEL_CHILD_S} s; every rank was killed")
+        _jobs.run_ranks("chip_smoke", world, rank_args, tmp,
+                        PARALLEL_CHILD_S, name=label)
+    except RuntimeError as exc:
+        raise SmokeFailure(f"[parallel] {label}: {exc}") from exc
     records = []
-    for rank, (proc, log) in enumerate(zip(procs, logs)):
+    for rank in range(world):
+        log = _jobs.rank_log(tmp, label, world, rank).read_text()
         lines = [line for line in log.splitlines()
                  if line.startswith("[parallel-rank] ")]
-        check(proc.returncode == 0 and lines,
-              f"[parallel] {label}: rank {rank}/{world} failed "
-              f"({proc.returncode}):\n{log[-3000:]}")
+        check(lines, f"[parallel] {label}: rank {rank}/{world} printed no "
+              f"record:\n{log[-3000:]}")
         records.append(json.loads(lines[-1][len("[parallel-rank] "):]))
     return records
 
@@ -2177,6 +2065,145 @@ def dtu_only(device):
           flush=True)
 
 
+# Phase 14: the measurement programs of the port, each through its `run` at
+# its defaults, the JAX package's configurations; none needed a cut to fit
+# the phase into ~120 s (88 s alone, 57 s after phases 1-13).
+MEASURE_RUNS = (
+    # program, runs in this process (its launches are counted here) or in
+    # worker processes (counted by their records), kernels that must launch
+    ("expand_profile", True, ("allview_ncc",)),
+    ("kernel_bench", True, ("slot_ncc",)),
+    ("kernel_paged_bench", True, ("allview_ncc", "slot_ncc")),
+    ("kernel_roofline", True, ("allview_ncc", "slot_ncc")),
+    ("prescreen_ab", True, ("allview_ncc",)),
+    ("scaling_overhead", True, ("allview_ncc",)),
+    ("scaling_measure", False, ("allview_ncc",)),
+    ("scaling_bench", False, ("allview_ncc",)),
+)
+PRESCREEN_RTOL = 0.10  # mode off's final patches against PRESCREEN_r05.json
+# Left out of the check that nothing is written: the kernels' build, the
+# git-ignored run-output directory, bytecode caches.
+UNWATCHED = ("densepoints_tpu_torch/_build", "chiprun_out", "__pycache__")
+
+
+def _tree_state(root: Path) -> dict:
+    """{path: (size, mtime)} of every file under `root` but the unwatched
+    directories."""
+    state = {}
+    for path in root.rglob("*"):
+        rel = path.relative_to(root).as_posix()
+        if any(part in rel for part in UNWATCHED) or rel.startswith(".git"):
+            continue
+        if path.is_file():
+            st = path.stat()
+            state[rel] = (st.st_size, st.st_mtime_ns)
+    return state
+
+
+def _numbers(value, where=""):
+    """(path, number) of every number in a record."""
+    if isinstance(value, dict):
+        for key, v in value.items():
+            yield from _numbers(v, f"{where}.{key}")
+    elif isinstance(value, (list, tuple)):
+        for i, v in enumerate(value):
+            yield from _numbers(v, f"{where}[{i}]")
+    elif isinstance(value, (int, float)) and not isinstance(value, bool):
+        yield where, value
+
+
+def measure_run(name, in_process, kernels, device, tmp):
+    """One program of phase 14 through its `run`, every counter at 0 just
+    before; checks and prints its record, and returns it."""
+    import importlib
+    import math
+
+    import torch
+
+    program = importlib.import_module(f"densepoints_tpu_torch.scripts.{name}")
+    args = program.parse_args(["--device", device,
+                               "--out", str(tmp / f"{name}.json")])
+    before = {ROOT: _tree_state(ROOT), Path.cwd(): _tree_state(Path.cwd())}
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    try:
+        record = program.run(args)
+    except SmokeFailure:
+        raise
+    except Exception as exc:  # a program that raises fails the phase
+        raise SmokeFailure(f"[measure] {name} raised "
+                           f"{type(exc).__name__}: {exc}") from exc
+    wall = time.perf_counter() - t0
+    launches, plain = _read_counters()
+    if not in_process:  # the ranks' counts, from their records
+        launches = dict(launches, **record["launches"])
+        plain = {"ranks": record["plain_calls"]}
+    print(f"[measure] {name}: {json.dumps(record)}", flush=True)
+    print(f"[measure] {name} run_s={wall:.2f} launches="
+          f"{json.dumps(launches)} plain_calls={sum(plain.values())}",
+          flush=True)
+    for kernel in kernels:
+        check(launches[kernel] > 0,
+              f"[measure] {name}: {kernel} was never launched")
+    check(sum(plain.values()) == 0,
+          f"[measure] {name}: {sum(plain.values())} plain scoring calls "
+          "on the card")
+    for root, state in before.items():
+        check(_tree_state(root) == state,
+              f"[measure] {name} wrote into {root}")
+    check(not (tmp / f"{name}.json").exists(),
+          f"[measure] {name}: run() wrote its --out file")
+    for where, number in _numbers(record):
+        check(math.isfinite(number),
+              f"[measure] {name}: {where} is {number}")
+    return record
+
+
+def _prescreen_check(record):
+    want = json.loads((ROOT / "PRESCREEN_r05.json").read_text())["modes"]
+    for mode, got in record["modes"].items():
+        print(f"[measure] prescreen_ab {mode}: final "
+              f"{got['patches_final']} after expand "
+              f"{got['patches_after_expand']} (PRESCREEN_r05.json "
+              f"{want[mode]['patches_final']}, "
+              f"{want[mode]['patches_after_expand']})", flush=True)
+    got = record["modes"]["off"]["patches_final"]
+    ref = want["off"]["patches_final"]
+    check(abs(got - ref) <= PRESCREEN_RTOL * ref,
+          f"[measure] prescreen_ab off: {got} final patches, "
+          f"PRESCREEN_r05.json {ref} (+-{PRESCREEN_RTOL:.0%})")
+
+
+def phase_measure(device):
+    """Phase 14: the measurement programs on the card; returns the K1
+    launches of each by name."""
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_measure_") as tmp:
+        for name, in_process, kernels in MEASURE_RUNS:
+            record = measure_run(name, in_process, kernels, device,
+                                 Path(tmp))
+            launches[name] = record["launches"]["allview_ncc"]
+            if name == "prescreen_ab":
+                _prescreen_check(record)
+            if name == "scaling_measure":
+                # The worker program's records, as scaling_measure read
+                # them from its ranks.
+                print("[measure] scaling_worker: " + json.dumps(
+                    {r["nproc"]: {k: r[k] for k in (
+                        "backend", "wall_seconds", "stage_seconds",
+                        "counters", "patches_per_rank", "launches")}
+                     for r in record["measured"]}), flush=True)
+    return launches
+
+
+def measure_only(device):
+    """The `--measure` mode: phase 14 alone, after the device and the
+    build."""
+    print(json.dumps({"allview_ncc_launches_measure":
+                      phase_measure(device)}), flush=True)
+
+
 def profile_dtu(device):
     """The `--profile-dtu` mode: run a of phase 13 under `torch.profiler`
     (key averages only, no trace file); one JSON line of its device ops,
@@ -2236,6 +2263,7 @@ def time_allview(device):
     from densepoints_tpu_torch.ops import allview_ncc, warp_ncc
     from densepoints_tpu_torch.ops.warp import compact_visible
     from densepoints_tpu_torch.pmvs.optimize import _anchor_chunks
+    from densepoints_tpu_torch.scripts import _rigs
 
     out = {"root": str(ROOT), "card": torch.cuda.get_device_name(0)}
 
@@ -2278,12 +2306,12 @@ def time_allview(device):
             host_medians(f"wrapper_host_{label}_ms",
                          lambda: allview_ncc.allview_scores(*args))
 
-    refine = refine_inputs(device)
+    refine = _rigs.refine_inputs(device)
     run("refine_k11", lambda vis: compact_visible(vis, 8), True, *refine, 11)
     run("refine_k16", None, False, *refine, 16)
     del refine
     run("dtu_k16", lambda vis: _anchor_chunks(vis, 16)[0], False,
-        *dtu_inputs(device), 16)
+        *_rigs.dtu_inputs(device), 16)
     print(json.dumps(out), flush=True)
 
 
@@ -2393,10 +2421,12 @@ def time_ncc(device):
             inputs = [t for t in first if t is not None]
             sets = [first] + [
                 _ncc_inputs(N, L, masked, device, seed=s)
-                for s in range(1, _timing.rotation(_nbytes(*inputs), l2))]
+                for s in range(1, _timing.rotation(
+                    _timing.nbytes(*inputs), l2))]
             got = ncc.ncc_pairs_cuda(*first)
-            out[f"{key}_bound_ms"] = round(_bound(
-                _nbytes(*inputs, got), N * L * NCC_ELEMENT_FLOPS[masked])[0],
+            out[f"{key}_bound_ms"] = round(_timing.bound(
+                _timing.nbytes(*inputs, got),
+                N * L * NCC_ELEMENT_FLOPS[masked])[0],
                 5)
             out[f"{key}_rotated_sets"] = len(sets)
             fns = [lambda s=s: ncc.ncc_pairs_cuda(*s) for s in sets]
@@ -2524,6 +2554,7 @@ def main() -> int:
              "--time-ncc": time_ncc, "--profile-main": profile_main,
              "--kernel-resources": kernel_resources,
              "--parallel": parallel_only, "--dtu": dtu_only,
+             "--measure": measure_only,
              "--profile-dtu": profile_dtu}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         try:
@@ -2554,6 +2585,7 @@ def main() -> int:
         ba_turned = phase_rest_of_pipeline("cuda", main_pts, main_times)
         parallel = phase_parallel("cuda", main_patches, ba_turned)
         dtu = phase_dtu("cuda")
+        phase_measure("cuda")
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1

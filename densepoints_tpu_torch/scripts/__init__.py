@@ -9,8 +9,24 @@
   kernel_ablate        the window-relative warp + NCC kernel, variant by
                        variant (`ops.window_ncc`);
   kernel_paged_ablate  the centred-texture kernel, variant by variant
-                       (`ops.window_textures`).
+                       (`ops.window_textures`);
+  expand_profile       one expansion round of the bench sphere, phase by
+                       phase;
+  kernel_bench         the slot kernel alone against the scoring pass
+                       around it;
+  kernel_paged_bench   the all-views pass against the chunked pass;
+  kernel_roofline      the all-views and slot kernels against their bounds;
+  prescreen_ab         the expansion pre-screen's three modes end to end;
+  scaling_overhead     the multi-process driver's overhead per round and
+                       the efficiency model built on it;
+  scaling_measure      jobs of 1, 2 and 4 `scaling_worker` processes on a
+                       fixed device total;
+  scaling_bench        the distributed refine step's throughput at N ranks.
 
-The first three run on a CUDA card unless given `--device cpu`; the two
-ablation programs time kernels and have no CPU mode.
+The end-to-end, profile, pre-screen and scaling programs run on a CUDA
+card unless given `--device cpu`; the kernel-timing programs (the two
+ablation programs, `kernel_bench`, `kernel_paged_bench`,
+`kernel_roofline`) have no CPU mode. A program writes its record only to
+`--out`, and its scratch to a fresh temporary directory unless told
+otherwise.
 """

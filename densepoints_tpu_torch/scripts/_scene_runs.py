@@ -1,10 +1,13 @@
-"""What the three end-to-end programs (`dtu_scale_run`, `dtu_layout_run`,
-`occlusion_run`) share: the repo's seeded scene generators, their working
-directories, the DTU tree they write, the analytic-sphere ground truth and
-the device's name."""
+"""What the programs of `densepoints_tpu_torch.scripts` share: the repo's
+seeded scene generators, their working directories, the DTU tree the
+end-to-end programs write, the analytic-sphere ground truth, the device's
+name, the `--config` option of the measurement programs and the way a
+record is put out."""
 from __future__ import annotations
 
+import argparse
 import contextlib
+import json
 import sys
 import tempfile
 from pathlib import Path
@@ -40,6 +43,34 @@ def work_dir(path: str, prefix: str):
         return
     with tempfile.TemporaryDirectory(prefix=prefix) as tmp:
         yield Path(tmp)
+
+
+def config_option(parser, defaults: dict) -> None:
+    """`--config JSON`: an object whose keys override `defaults`, the
+    program's sizes at its JAX program's configuration (smaller ones serve
+    runs on the CPU and the workers of a job); `args.config` is the merged
+    dict. A key `defaults` lacks is an error."""
+    def merged(text):
+        given = json.loads(text)
+        unknown = sorted(set(given) - set(defaults))
+        if unknown:
+            raise argparse.ArgumentTypeError(
+                f"unknown keys {unknown}; known: {sorted(defaults)}")
+        return {**defaults, **given}
+
+    parser.add_argument(
+        "--config", type=merged, default=dict(defaults),
+        help="JSON object overriding the sizes "
+             f"{json.dumps(defaults)}")
+
+
+def emit(record: dict, out: str = "") -> None:
+    """Print `record` as the last line, and write it to `out` if given (a
+    program writes nowhere else)."""
+    if out:
+        with open(out, "w") as f:
+            json.dump(record, f, indent=1)
+    print(json.dumps(record), flush=True)
 
 
 def device_label(device: str) -> str:

@@ -34,7 +34,6 @@ Departures from the JAX program, each a repair:
 from __future__ import annotations
 
 import argparse
-import json
 import sys
 import time
 from pathlib import Path
@@ -248,11 +247,7 @@ def run(args) -> dict:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    artifact = run(args)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(artifact, f, indent=1)
-    print(json.dumps(artifact), flush=True)
+    _scene_runs.emit(run(args), args.out)
     return 0
 
 

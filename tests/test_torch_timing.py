@@ -60,7 +60,7 @@ def test_rotation_takes_turns_over_more_than_twice_the_l2(set_bytes, l2,
 
 
 def test_timing_refuses_the_cpu():
-    with pytest.raises(SystemExit, match="CUDA card"):
+    with pytest.raises(ValueError, match="CUDA card"):
         _timing.cuda_device("cpu")
 
 
