@@ -10,6 +10,7 @@
     python3 chip_smoke.py --dtu
     python3 chip_smoke.py --profile-dtu
     python3 chip_smoke.py --measure
+    python3 chip_smoke.py --bench
 
 Phases, each printing its own lines; any failure exits non-zero and prints
 no result line:
@@ -79,6 +80,9 @@ no result line:
      of what BA reaches from the exact cameras, and the two clouds' radial
      errors lie within 1.5 of each other; `[mesh]` `--mesh`, vertices and
      faces, finite, median radial error under a voxel, TSDF seconds;
+     then `extract_surface` twice on phase 10's cloud, the two meshes
+     bitwise equal (the fusion sums in a fixed order), with the fusion
+     seconds beside the ones of the `index_add_` fusion before;
      `[debug]` / `[profile]` one run with `--debug-dir` (seed and final
      clouds, 12 occupancy images) and `--profile-dir` (a trace naming
      K1's kernel); `[native]` the native runtime built and loaded, the
@@ -142,7 +146,19 @@ no result line:
      `--out` of the run is never written by `run`), a number of a record
      is not finite, or `prescreen_ab`'s mode `off` ends more than 10% off
      `PRESCREEN_r05.json`'s 4491 final patches. `--measure` runs phase 14
-     alone.
+     alone;
+  15. the port's bench program (`[bench]`), `scripts.bench` through its
+     `run` at the root `bench.py`'s configuration, nothing cut (refine
+     throughput over 5 timed runs, K1 alone against its bound, and the
+     bench sphere end to end, cold and 5 warm runs and one profiled), with
+     phase 14's checks and its final and after-expansion patches within
+     10% of `BENCH_r05.json`'s 4648 and 6293 and a median radial error
+     under 1.5; then (`[entry]`) `entry.entry()` once on the card (K1
+     launched, no plain call, finite positions) and
+     `entry.dryrun_multichip(8)`, eight gloo ranks sharing the card, which
+     must print "refined 16 patches, 4 inserted" (`MULTICHIP_r05.json`),
+     and nothing written into the checkout or the cwd. `--bench` runs
+     phase 15 alone.
 Each kernel's time stands beside its bound: the larger of the bytes it must
 move (every input read once, every output written once; of the image stack
 no more than the 4 taps of every texel this run's data samples) over
@@ -1415,11 +1431,18 @@ def _with_settings(**sections):
     return settings
 
 
-def phase_rest_of_pipeline(device, main_pts, main_times):
+# `fuse_tsdf`'s seconds on the card when it summed with `index_add_`
+# (f32 atomics in no fixed order): the `--mesh` run of phase 11 on the
+# sphere, R = 128 (PERF.md).
+FUSION_S_INDEX_ADD = 0.001
+
+
+def phase_rest_of_pipeline(device, main_pts, main_times, main_patches):
     """Phase 11: checkpoint / resume, multi-scale, bundle adjustment, the
-    mesh, debug and profile dumps, the native runtime and the cloud metrics,
-    each CLI run on the sphere with every counter set to 0 just before.
-    Returns the BA RMSE of the turned calibration."""
+    mesh (and two meshes of phase 10's cloud, bitwise equal), debug and
+    profile dumps, the native runtime and the cloud metrics, each CLI run on
+    the sphere with every counter set to 0 just before. Returns the BA RMSE
+    of the turned calibration."""
     import numpy as np
     import torch
 
@@ -1534,6 +1557,28 @@ def phase_rest_of_pipeline(device, main_pts, main_times):
         check(len(verts) > 0 and faces > 0, "empty mesh")
         check(bool(np.isfinite(verts).all()), "non-finite mesh vertices")
         check(med < voxel, f"mesh radial error {med:.4f} >= voxel {voxel:.3f}")
+
+        # The same cloud gives the same mesh: phase 10's cloud twice.
+        cloud = (main_patches.position.cpu().numpy(),
+                 main_patches.normal.cpu().numpy())
+        meshes, fusion_s = [], []
+        tsdf.fuse_tsdf = timing("fuse_tsdf", saved[1])
+        try:
+            for _ in range(2):
+                meshes.append(tsdf.extract_surface(*cloud, SurfaceConfig(),
+                                                   device))
+                fusion_s.append(timed["fuse_tsdf"])
+        finally:
+            tsdf.fuse_tsdf = saved[1]
+        same = all(np.array_equal(a, b) for a, b in zip(*meshes))
+        print(f"[mesh] phase 10's cloud ({len(cloud[0])} points) twice: "
+              f"{len(meshes[0][0])} and {len(meshes[1][0])} vertices, "
+              f"{len(meshes[0][1])} and {len(meshes[1][1])} faces, bitwise "
+              f"equal {same}; TSDF fusion "
+              + " and ".join(f"{t:.4f}" for t in fusion_s)
+              + f" s in fixed order (index_put_), {FUSION_S_INDEX_ADD} s "
+              "with index_add_ (PERF.md)", flush=True)
+        check(same, "two meshes of one cloud differ")
 
         # Debug dumps and a profile trace of one run.
         dbg, prof = tmp / "debug", tmp / "profile"
@@ -2112,9 +2157,10 @@ def _numbers(value, where=""):
         yield where, value
 
 
-def measure_run(name, in_process, kernels, device, tmp):
-    """One program of phase 14 through its `run`, every counter at 0 just
-    before; checks and prints its record, and returns it."""
+def measure_run(name, in_process, kernels, device, tmp, tag="measure"):
+    """One program of phase 14 (or 15) through its `run`, every counter at
+    0 just before; checks and prints its record under `[tag]`, and returns
+    it."""
     import importlib
     import math
 
@@ -2132,31 +2178,31 @@ def measure_run(name, in_process, kernels, device, tmp):
     except SmokeFailure:
         raise
     except Exception as exc:  # a program that raises fails the phase
-        raise SmokeFailure(f"[measure] {name} raised "
+        raise SmokeFailure(f"[{tag}] {name} raised "
                            f"{type(exc).__name__}: {exc}") from exc
     wall = time.perf_counter() - t0
     launches, plain = _read_counters()
     if not in_process:  # the ranks' counts, from their records
         launches = dict(launches, **record["launches"])
         plain = {"ranks": record["plain_calls"]}
-    print(f"[measure] {name}: {json.dumps(record)}", flush=True)
-    print(f"[measure] {name} run_s={wall:.2f} launches="
+    print(f"[{tag}] {name}: {json.dumps(record)}", flush=True)
+    print(f"[{tag}] {name} run_s={wall:.2f} launches="
           f"{json.dumps(launches)} plain_calls={sum(plain.values())}",
           flush=True)
     for kernel in kernels:
         check(launches[kernel] > 0,
-              f"[measure] {name}: {kernel} was never launched")
+              f"[{tag}] {name}: {kernel} was never launched")
     check(sum(plain.values()) == 0,
-          f"[measure] {name}: {sum(plain.values())} plain scoring calls "
+          f"[{tag}] {name}: {sum(plain.values())} plain scoring calls "
           "on the card")
     for root, state in before.items():
         check(_tree_state(root) == state,
-              f"[measure] {name} wrote into {root}")
+              f"[{tag}] {name} wrote into {root}")
     check(not (tmp / f"{name}.json").exists(),
-          f"[measure] {name}: run() wrote its --out file")
+          f"[{tag}] {name}: run() wrote its --out file")
     for where, number in _numbers(record):
         check(math.isfinite(number),
-              f"[measure] {name}: {where} is {number}")
+              f"[{tag}] {name}: {where} is {number}")
     return record
 
 
@@ -2202,6 +2248,104 @@ def measure_only(device):
     build."""
     print(json.dumps({"allview_ncc_launches_measure":
                       phase_measure(device)}), flush=True)
+
+
+# Phase 15: the port's bench program at the root `bench.py`'s configuration
+# (nothing cut), then the entry points of `__graft_entry__.py`.
+BENCH_RTOL = 0.10  # final and after-expansion patches against BENCH_r05.json
+BENCH_RADIAL = 1.5  # median radial error of the bench cloud (radius 150)
+DRYRUN_RANKS = 8
+DRYRUN_WANT = (16, 4)  # MULTICHIP_r05.json: refined 16 patches, 4 inserted
+
+
+def _bench_record_counts():
+    """(final, after expansion) patches of the JAX bench's warm run, from
+    `BENCH_r05.json` (its log's last `patches_after_expand`)."""
+    import re
+
+    rec = json.loads((ROOT / "BENCH_r05.json").read_text())
+    after = re.findall(r"patches_after_expand=(\d+)", rec["tail"])
+    return rec["parsed"]["densify_patches_final"], int(after[-1])
+
+
+def phase_bench(device):
+    """Phase 15: `scripts.bench` through its `run` (phase 14's checks, and
+    its counts against `BENCH_r05.json`), then `entry.entry()` and
+    `entry.dryrun_multichip(8)` on the card; returns the K1 launches of
+    the bench run and of `entry()`."""
+    import math
+
+    import torch
+
+    from densepoints_tpu_torch import entry
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+        rec = measure_run("bench", True, ("allview_ncc",), device, Path(tmp),
+                          tag="bench")
+    want_final, want_after = _bench_record_counts()
+    final, after = rec["densify_patches_final"], rec["patches_after_expand"]
+    print(f"[bench] {rec['device']}: final {final} (BENCH_r05.json "
+          f"{want_final}), after expand {after} ({want_after}); e2e "
+          "patches/s min / median / max "
+          + " / ".join(f"{rec['e2e_patches_per_sec'][k]:.1f}"
+                       for k in ("min", "median", "max"))
+          + "; refine patches/s "
+          + " / ".join(f"{rec['refine_patches_per_sec'][k]:.1f}"
+                       for k in ("min", "median", "max"))
+          + f"; K1 {rec['kernel_ms_per_pass']:.5f} ms b2b, bound "
+          f"{rec['kernel_bound_ms']:.5f} ({rec['kernel_bound_by']}), share "
+          f"{rec['kernel_bound_share']:.3f}; device busy "
+          f"{rec['device_busy_share']:.4f} of a warm run; median radial "
+          f"error {rec['median_radial_error']:.4f}", flush=True)
+    for name, got, want in (("final", final, want_final),
+                            ("after expand", after, want_after)):
+        check(abs(got - want) <= BENCH_RTOL * want,
+              f"[bench] {name} {got} patches, BENCH_r05.json {want} "
+              f"(+-{BENCH_RTOL:.0%})")
+    check(rec["median_radial_error"] < BENCH_RADIAL,
+          f"[bench] median radial error {rec['median_radial_error']:.4f}")
+
+    before = {ROOT: _tree_state(ROOT), Path.cwd(): _tree_state(Path.cwd())}
+    _reset_counters()
+    try:
+        fn, example = entry.entry(device)
+        out = fn(*example)
+        torch.cuda.synchronize()
+    except Exception as exc:
+        raise SmokeFailure(f"[entry] entry() raised {type(exc).__name__}: "
+                           f"{exc}") from exc
+    launches, plain = _read_counters()
+    finite = bool(torch.isfinite(out.position).all())
+    print(f"[entry] entry(): {launches['allview_ncc']} K1 launches, "
+          f"{sum(plain.values())} plain calls, {int(out.alive.sum())} of "
+          f"{out.capacity} patches alive, positions finite {finite}",
+          flush=True)
+    check(launches["allview_ncc"] > 0, "[entry] entry() launched no K1")
+    check(sum(plain.values()) == 0, "[entry] entry() took the plain path")
+    check(finite and out.position.device.type == "cuda",
+          "[entry] entry(): non-finite positions or not on the card")
+    t0 = time.perf_counter()
+    try:
+        got = entry.dryrun_multichip(DRYRUN_RANKS, device)
+    except Exception as exc:  # a rank that fails fails the phase
+        raise SmokeFailure(f"[entry] dryrun_multichip({DRYRUN_RANKS}) raised"
+                           f" {type(exc).__name__}: {exc}") from exc
+    print(f"[entry] dryrun_multichip({DRYRUN_RANKS}) on the card: refined "
+          f"{got[0]} patches, {got[1]} inserted in "
+          f"{time.perf_counter() - t0:.2f} s (MULTICHIP_r05.json: refined "
+          f"{DRYRUN_WANT[0]} patches, {DRYRUN_WANT[1]} inserted)", flush=True)
+    check(got == DRYRUN_WANT, f"[entry] dryrun_multichip: {got}")
+    for root, state in before.items():
+        check(_tree_state(root) == state, f"[entry] wrote into {root}")
+    return {"bench": rec["launches"]["allview_ncc"],
+            "entry": launches["allview_ncc"]}
+
+
+def bench_only(device):
+    """The `--bench` mode: phase 15 alone, after the device and the
+    build."""
+    print(json.dumps({"allview_ncc_launches_bench": phase_bench(device)}),
+          flush=True)
 
 
 def profile_dtu(device):
@@ -2554,7 +2698,7 @@ def main() -> int:
              "--time-ncc": time_ncc, "--profile-main": profile_main,
              "--kernel-resources": kernel_resources,
              "--parallel": parallel_only, "--dtu": dtu_only,
-             "--measure": measure_only,
+             "--measure": measure_only, "--bench": bench_only,
              "--profile-dtu": profile_dtu}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         try:
@@ -2582,10 +2726,12 @@ def main() -> int:
         phase_seed_variants("cuda")
         (launches["allview_ncc"], main_times, main_pts,
          main_patches) = phase_main_path("cuda")
-        ba_turned = phase_rest_of_pipeline("cuda", main_pts, main_times)
+        ba_turned = phase_rest_of_pipeline("cuda", main_pts, main_times,
+                                           main_patches)
         parallel = phase_parallel("cuda", main_patches, ba_turned)
         dtu = phase_dtu("cuda")
         phase_measure("cuda")
+        bench = phase_bench("cuda")
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
@@ -2609,7 +2755,10 @@ def main() -> int:
             "bound_by": shown["bound_by"],
             # Phase 12's runs, every rank's own count (K1 alone).
             # Phase 13's runs a, b and c (K1 alone).
-            **({"launches_parallel": parallel, "launches_dtu": dtu}
+            # Phase 15's bench run and entry() (K1 alone).
+            **({"launches_parallel": parallel, "launches_dtu": dtu,
+                "launches_bench": bench["bench"],
+                "launches_entry": bench["entry"]}
                if kernel == "allview_ncc" else {}),
             # No single PyTorch call computes a projective warp + NCC, a
             # clamped row-wise NCC, or window-relative sampling with zeros

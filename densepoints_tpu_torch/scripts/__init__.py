@@ -21,9 +21,12 @@
                        the efficiency model built on it;
   scaling_measure      jobs of 1, 2 and 4 `scaling_worker` processes on a
                        fixed device total;
-  scaling_bench        the distributed refine step's throughput at N ranks.
+  scaling_bench        the distributed refine step's throughput at N ranks;
+  bench                refine throughput, one all-views pass against its
+                       bound, and end-to-end densification of the bench
+                       sphere, each with its spread over several runs.
 
-The end-to-end, profile, pre-screen and scaling programs run on a CUDA
+The end-to-end, profile, pre-screen, scaling and bench programs run on a CUDA
 card unless given `--device cpu`; the kernel-timing programs (the two
 ablation programs, `kernel_bench`, `kernel_paged_bench`,
 `kernel_roofline`) have no CPU mode. A program writes its record only to

@@ -195,18 +195,48 @@ SPHERE_CONFIG = {
 }
 
 
-def sphere_scene(num_views=12, width=512, height=384, focal=450.0,
-                 radius=150.0, cam_radius=500.0, tex_size=2048):
-    """The textured sphere (`default_rng(0)`, a grid of cameras over 0.9 x
-    0.45 rad): (generator, f32 images (V, H, W))."""
+def sphere_generator(rng, num_views=12, width=512, height=384,
+                     focal=450.0, radius=150.0, cam_radius=500.0,
+                     tex_size=2048):
+    """The textured sphere's generator, its texture drawn from `rng`, with
+    a grid of cameras over 0.9 x 0.45 rad."""
     from densepoints_tpu_torch.scripts import _scene_runs
 
-    sc = _scene_runs.synthetic().TexturedSphereScene(
-        np.random.default_rng(0), num_views=num_views, width=width,
-        height=height, focal=focal, radius=radius, cam_radius=cam_radius,
-        tex_size=tex_size, layout="grid", yaw_span=0.9, pitch_span=0.45,
+    return _scene_runs.synthetic().TexturedSphereScene(
+        rng, num_views=num_views, width=width, height=height, focal=focal,
+        radius=radius, cam_radius=cam_radius, tex_size=tex_size,
+        layout="grid", yaw_span=0.9, pitch_span=0.45,
     )
+
+
+def sphere_scene(**sphere):
+    """The textured sphere (`sphere_generator` from `default_rng(0)`):
+    (generator, f32 images (V, H, W))."""
+    sc = sphere_generator(np.random.default_rng(0), **sphere)
     return sc, sc.render_all()
+
+
+def bench_rig(num_views=8, H=480, W=640, B=4096, sphere=None):
+    """The inputs of the root `bench.py`, drawn from one `default_rng(0)`
+    in its order: the refine rig's images and patch positions (8 views of
+    480 x 640 on an arc at focal 500, B plane patches within +-1,
+    reference view 0, every view but view 0 visible), then the end-to-end
+    sphere's texture (`sphere_generator` with the keywords `sphere`, its
+    defaults if None). So the sphere is
+    not `sphere_scene`'s, whose texture is the generator's first draw.
+    Returns (numpy (P, images, position, normal, ref (B,) int64, vis (B, V)
+    bool), the sphere's generator, unrendered)."""
+    rng = np.random.default_rng(0)
+    P = projections(
+        arc_centres(num_views, 0.12, lambda i: 0.2 * np.sin(2 * i)),
+        500.0, W, H)
+    images = rng.uniform(0, 255, (num_views, H, W)).astype(np.float32)
+    pos, nrm = plane_patches(rng.uniform(-1.0, 1.0, (B, 2)))
+    ref = np.zeros((B,), np.int64)
+    vis = np.ones((B, num_views), bool)
+    vis[:, 0] = False
+    return ((P, images, pos, nrm, ref, vis),
+            sphere_generator(rng, **(sphere or {})))
 
 
 def sphere_seeds(n=3000, radius=150.0):

@@ -4,8 +4,10 @@
     device: every point updates the voxels in a (2r+1)^3 window around it
     with the signed distance along its normal (a local plane
     approximation), weighted by tangential distance; the window's offsets
-    are scatter-adds (`index_add_`) into two (R^3 + 1)-long f32 buffers.
-    On CUDA those adds are f32 atomics in no fixed order.
+    are summed into two (R^3 + 1)-long f32 buffers by `index_put_` with
+    `accumulate`, which adds in one order on every run (on CUDA it sorts
+    the voxel ids first, stably, and sums each voxel's run of adds in
+    turn), pass after pass: the same cloud gives the same grids and mesh.
   * meshing: marching tetrahedra over the fused grid on the host (numpy, a
     copy of the JAX package's mesher): each cube splits into 6 tetrahedra
     with a 16-case table; vertices are linearly interpolated zero
@@ -62,8 +64,10 @@ def fuse_tsdf(
             ok, (idx[..., 2] * R + idx[..., 1]) * R + idx[..., 0], R * R * R
         ).reshape(-1)
         clipped = torch.clamp(sdf, -truncation, truncation)
-        tsdf.index_add_(0, flat, torch.where(ok, w * clipped, 0.0).reshape(-1))
-        weight.index_add_(0, flat, torch.where(ok, w, 0.0).reshape(-1))
+        tsdf.index_put_((flat,), torch.where(ok, w * clipped, 0.0).reshape(-1),
+                        accumulate=True)
+        weight.index_put_((flat,), torch.where(ok, w, 0.0).reshape(-1),
+                          accumulate=True)
     tsdf = tsdf[:-1] / torch.clamp_min(weight[:-1], 1e-9)
     tsdf = torch.where(weight[:-1] > 1e-6, tsdf, truncation)
     return tsdf.reshape(R, R, R), weight[:-1].reshape(R, R, R)

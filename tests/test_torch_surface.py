@@ -4,7 +4,9 @@
 weight is above 1e-6 (f32 scatter-adds summed in another order), weights
 within 1e-5, the same observed set. `marching_tetrahedra` is a host copy:
 array-equal on the same grid. `write_mesh_ply` is byte-equal. Then the JAX
-package's four surface cases on the port.
+package's four surface cases on the port. On the card (`cuda`), the grids
+agree with the CPU's, and two fusions, and two meshes, of one cloud are
+bitwise equal.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -157,3 +159,26 @@ def test_fuse_tsdf_on_card_matches_cpu(cuda_device):
     v_card, _ = tsdf.extract_surface(pos, nrm, config, device=cuda_device)
     v_cpu, _ = tsdf.extract_surface(pos, nrm, config, device="cpu")
     assert abs(len(v_card) - len(v_cpu)) <= 0.01 * len(v_cpu)
+
+
+@pytest.mark.cuda
+def test_fusion_on_card_is_bitwise_repeatable(cuda_device):
+    """The same cloud gives the same grids and the same mesh on the card:
+    two `fuse_tsdf` runs are bitwise equal (`torch.equal`), and so are two
+    `extract_surface` runs (`np.array_equal`). The cloud spans two passes
+    of `_POINTS_PER_PASS` points; its adds collide on every crust voxel."""
+    pos, nrm = _sphere(np.random.default_rng(3), n=40000)
+    lo, voxel, trunc = _grid_inputs(pos, 64)
+    args = [torch.as_tensor(a, device=cuda_device) for a in (pos, nrm, lo)]
+    scalars = [torch.tensor(s, device=cuda_device) for s in (voxel, trunc)]
+    runs = [tsdf.fuse_tsdf(*args, scalars[0], 64, scalars[1])
+            for _ in range(2)]
+    for first, second in zip(*runs):
+        assert first.device.type == "cuda"
+        assert torch.equal(first, second)
+    config = SurfaceConfig(voxel_resolution=64)
+    meshes = [tsdf.extract_surface(pos, nrm, config, device=cuda_device)
+              for _ in range(2)]
+    assert len(meshes[0][0]) > 200
+    for first, second in zip(*meshes):
+        assert np.array_equal(first, second)
