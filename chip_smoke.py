@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-allview
+    python3 chip_smoke.py --dump-scores FILE
+    python3 chip_smoke.py --compare-scores FILE FILE
     python3 chip_smoke.py --time-window
     python3 chip_smoke.py --time-ncc
     python3 chip_smoke.py --profile-main
@@ -26,8 +28,13 @@ no result line:
      patches, ~25 visible views each, k = 16): scores within 1e-4, equal
      anchors, equal sentinel placement; CUDA-event times of both; then at
      small awkward shapes (1 and 130 views, k = 1, 5, 7 and 21, batches of
-     0 and 1), and a profile showing that the entry point runs one device
-     kernel and nothing before it;
+     0 and 1) and at view counts past 254, which the kernels take in tiles
+     of 32 views (255; 312 at k = 11 and 16 with 4096 patches; 1100; 300
+     at k = 21 and 31, the strided variant; each with a row whose only
+     visible view lies in the last tile and a row whose anchor is
+     off-frustum while the last tile holds the footprint), and a profile
+     showing that the entry point runs one device kernel and nothing
+     before it;
   4. row-wise NCC kernel vs plain: `ops.ncc` at (32768, 121) and
      (262144, 256), maskless and masked (with empty-mask rows), timed back
      to back and over rotated input sets (the record keeps the rotated
@@ -39,7 +46,8 @@ no result line:
   5. slot kernel vs plain: `ops.warp_ncc` at the refine shape (8 slots,
      k = 11 and 16) and the DTU shape (4 anchor-pinned chunks of 16 slots,
      k = 16): scores within 1e-4, equal sentinel placement; the awkward
-     shapes too, with a table of one slot and view ids outside the stack;
+     shapes too, with a table of one slot, a table of 300 slots over the
+     312-view rigs and view ids outside the stack;
   6. window kernels vs plain: `ops.window_ncc` (`full`, `staged`, `block`,
      and the gradient form against its own plain version) and
      `ops.window_textures` (`full`, `staged`, `block`) at the shapes of the
@@ -106,25 +114,30 @@ no result line:
      launches, patches, radial error, stage seconds and the traffic of
      its collectives. `--parallel` runs phases 10 and 12 alone;
   13. the three end-to-end programs of `densepoints_tpu_torch.scripts`
-     through their `run`, each with every counter at 0 just before, at
-     the configurations of the JAX package's records (`[dtu]`): a,
-     `dtu_scale_run` at `DTU_r05.json`'s (49 views of 1600 x 1200, kp
-     8192, 6 per cell, 120 / 40 Nelder-Mead iterations, 25 score views,
-     grid_scale 8, 20 rounds; no depth cut); b, `dtu_layout_run` and c,
-     `occlusion_run` at their defaults (21 views of 800 x 600 through the
-     on-disk DTU tree, with nuisances). Each run prints its render,
-     stage and densify seconds, counts, K1 launches and plain calls, peak
-     allocation and quality, and its counts beside the JAX record's; it
-     fails if a stage raises, K1 is never launched, a plain scoring call
-     is made, or a quality gate set from the JAX record is missed (a:
-     exact median under one pixel footprint, 650 / 2900 mm, completeness
-     under 2 mm >= 0.95, >= 10,000 patches; b: exact median under 0.5 mm,
-     >= 1,500 patches; c: the occlusion filter's kept patches' median
-     distance to the surface union under 2 mm). `--dtu` runs phase 13
-     alone; `--profile-dtu` runs a under `torch.profiler` (key averages,
-     no trace file) and prints its device ops, device time, K1's time and
-     launches, the ten costliest kernels and the device-busy share of
-     `densify`'s wall;
+     through their `run` in four runs (`[dtu]`), each with every counter
+     at 0 just before: a, `dtu_scale_run` at `DTU_r05.json`'s
+     configuration (49 views of 1600 x 1200, kp 8192, 6 per cell, 120 / 40
+     Nelder-Mead iterations, 25 score views, grid_scale 8, 20 rounds; no
+     depth cut); b, `dtu_layout_run` and c, `occlusion_run` at their
+     defaults, the configurations of their JAX records (21 views of 800 x
+     600 through the on-disk DTU tree, with nuisances); d, `dtu_scale_run`
+     with run a's flags at Middlebury `temple`'s 312 views of 640 x 480
+     (focal 1160, run a's field of view; grid_scale 4; 12 rounds; no JAX
+     record). Each run prints its render, stage and densify seconds,
+     counts, K1 launches and plain calls, peak allocation, mean visible
+     views per patch and quality, and its counts beside the JAX record's
+     where there is one; it fails if a stage raises, K1 is never launched,
+     a plain scoring call is made, or a quality gate is missed (a, b, c set
+     from the JAX record; a: exact median under one pixel footprint, 650 /
+     2900 mm, completeness under 2 mm >= 0.95, >= 10,000 patches; b: exact
+     median under 0.5 mm, >= 1,500 patches; c: the occlusion filter's kept
+     patches' median distance to the surface union under 2 mm; d: run a's
+     gates at its own pixel footprint, exact median under 650 / 1160 mm,
+     completeness under 2 mm >= 0.95, >= 5,000 patches). `--dtu` runs
+     phase 13 alone; `--profile-dtu` runs a under `torch.profiler` (key
+     averages, no trace file) and prints its device ops, device time, K1's
+     time and launches, the ten costliest kernels and the device-busy
+     share of `densify`'s wall;
   14. the measurement programs of `densepoints_tpu_torch.scripts`
      (`[measure]`), each through its `run` at its own defaults (the JAX
      package's configurations; nothing is cut), every counter at 0 just
@@ -173,9 +186,13 @@ With `--time-allview` the script only builds the kernels and prints one
 JSON line of kernel-only times (three medians of 50 CUDA-event timings):
 the all-views kernel at the refine k = 11, k = 16 and DTU k = 16 shapes,
 the slot kernel at the refine k = 11 shape (8 slots) and on the first DTU
-chunk (16 slots), and the entry point `allview_scores` at the refine k = 11
-shape (`wrapper_refine_k11_ms` by CUDA events, `wrapper_host_refine_k11_ms`
-on the host's clock until the call returns). It takes the package
+chunk (16 slots), both kernels again on the DTU shape's first 512 patches
+(`dtu_k16_b512`), the all-views kernel past 254 views (312 views at k = 11
+and 16 with 4096 patches, 1100 views with 256, each beside its bound, or
+the refusal of a tree whose kernel refuses the shape), and the entry point
+`allview_scores` at the refine k = 11 shape (`wrapper_refine_k11_ms` by
+CUDA events, `wrapper_host_refine_k11_ms` on the host's clock until the
+call returns). It takes the package
 from the directory it lies in, so a copy of it placed in a checkout of
 another commit, with this commit's `densepoints_tpu_torch/scripts/
 _timing.py` copied beside it, times that commit's kernels: run the two in
@@ -187,12 +204,17 @@ both of its program's shapes and the awkward one.
 (262144, 256), maskless and masked, each b2b time beside a rotated one
 (the calls take turns over at least 4 seeded input sets larger than twice
 the L2 cache together, so each call reads device memory) and the bound.
+`--dump-scores FILE` saves the outputs of K1 and K2 at the refine, DTU
+and awkward shapes of at most 254 views, and `--compare-scores A B` holds
+two such files equal with `torch.equal` (no card needed): run the first
+in two checkouts to compare their kernels' outputs bitwise.
 `--profile-main` runs the CLI on the sphere scene under `torch.profiler`
 and prints one JSON line of its device ops, launches and stage seconds.
 `--kernel-resources` prints the registers, stack and spills `ptxas`
 reports for every kernel instance of the two warp + NCC kernels, the
 row-wise NCC kernel (none of whose instances may spill) and the two window
-kernels, and the instruction count and a digest of the SASS of every
+kernels, the source lines where the warp + NCC kernels' spills sit
+(`spill_lines`), and the instruction count and a digest of the SASS of every
 function in the library the package built: run in two checkouts, or in one
 with another `ops/_build.py`, it says whether two builds made the same code.
 """
@@ -800,12 +822,39 @@ def small_rig(device, V, B, seed):
     return cams, t(images), t(pos), t(nrm), t(ref), t(vis)
 
 
+# Phase 3's awkward shapes (V, B, k): one view, more views than a block
+# has threads, textures of 1, 25, 49 and 441 texels (fewer texels than
+# lanes; two per lane; the strided variant), batches of 0 and 1; then view
+# counts the kernels once refused (more than 254 views at k = 11 and 16,
+# 218 at k = 21, 174 at k = 31), whose rows the kernels take in tiles of
+# 32 views: 255, 312 at the refine batch, 1100, and 300 in the strided
+# variant.
+AWKWARD_SHAPES = ((1, 33, 11), (130, 40, 5), (130, 40, 16), (8, 64, 1),
+                  (8, 64, 5), (8, 64, 7), (8, 64, 21), (8, 1, 11),
+                  (8, 0, 11), (49, 64, 11))
+MANY_VIEW_SHAPES = ((255, 64, 11), (312, 4096, 11), (312, 4096, 16),
+                    (1100, 256, 11), (300, 64, 21), (300, 64, 31))
+MANY_SLOTS = 300  # phase 5's wide slot table, on the 312-view rigs
+
+
+def awkward_rig(device, V, B, k):
+    """`small_rig` of an awkward shape, seeded by the shape; past 254 views
+    with the rows of `_rigs.tile_edge_rows` (anchor in the last tile,
+    anchor off-frustum)."""
+    from densepoints_tpu_torch.scripts import _rigs
+
+    cams, images, pos, nrm, ref, vis = small_rig(device, V, B,
+                                                 seed=100 + V + B + k)
+    if V > 254:
+        pos, ref, vis = _rigs.tile_edge_rows(cams, pos, nrm, ref, vis, k)
+    return cams, images, pos, nrm, ref, vis
+
+
 def phase_awkward_shapes(device, results):
     """K1 and K2 against their plain versions at the shapes that stress the
-    kernels' control flow: one view, more views than a block has threads,
-    textures of 1, 25, 49 and 441 texels (fewer texels than lanes; two per
-    lane; the strided variant), batches of 0 and 1, a slot table of one slot, and view ids
-    outside the stack."""
+    kernels' control flow (`AWKWARD_SHAPES`, `MANY_VIEW_SHAPES`), with a
+    slot table of one slot, one of `MANY_SLOTS` slots and view ids outside
+    the stack."""
     import torch
 
     from densepoints_tpu_torch.ops import allview_ncc, warp_ncc
@@ -813,23 +862,31 @@ def phase_awkward_shapes(device, results):
 
     worst = {"allview_ncc": 0.0, "slot_ncc": 0.0}
     lines = []
-    for V, B, k in ((1, 33, 11), (130, 40, 5), (130, 40, 16), (8, 64, 1),
-                    (8, 64, 5), (8, 64, 7), (8, 64, 21), (8, 1, 11),
-                    (8, 0, 11), (49, 64, 11)):
-        rig = small_rig(device, V, B, seed=100 + V + B + k)
+    for V, B, k in AWKWARD_SHAPES + MANY_VIEW_SHAPES:
+        rig = awkward_rig(device, V, B, k)
         label = f"V={V} B={B} k={k}"
         launches = allview_ncc.KERNEL_LAUNCHES
-        sk, _, _, err, scored, flips = check_kernel(f"awkward {label}",
-                                                    *rig, k)
+        sk, ak, okk, err, scored, flips = check_kernel(f"awkward {label}",
+                                                       *rig, k)
         check(allview_ncc.KERNEL_LAUNCHES == launches + (1 if B else 0),
               f"awkward {label}: the all-views kernel did not launch once")
         check(tuple(sk.shape) == (B, V), f"awkward {label}: {sk.shape}")
         worst["allview_ncc"] = max(worst["allview_ncc"], err)
         lines.append(f"{label}: scored={scored} err={err:.3e} flips={flips}")
-        # The slot kernel on the same rig: the default compaction, and for
-        # V = 8 a single slot and a table with ids outside [0, V).
+        if V > 254:
+            check(int(ak[9]) == V - 1 and bool((sk[9] == -1).all())
+                  and int(ak[10]) == 0 and not bool(okk[10])
+                  and bool((sk[10] == -1).all()),
+                  f"awkward {label}: the rows of the last tile and of the "
+                  "off-frustum anchor")
+        # The slot kernel on the same rig: the default compaction, for V = 8
+        # a single slot and a table with ids outside [0, V), and for V = 312
+        # a table of MANY_SLOTS slots.
         cams, images, pos, nrm, ref, vis = rig
         tables = [("M=16", *compact_visible(vis, 16), None)]
+        if V == 312:
+            tables.append((f"M={MANY_SLOTS}",
+                           *compact_visible(vis, MANY_SLOTS), None))
         if V == 8:
             tables.append(("M=1", *compact_visible(vis, 1), None))
             ids, ok = compact_visible(vis, 8)
@@ -1972,22 +2029,35 @@ def phase_parallel(device, main_patches, ba_turned_rmse):
     return launches
 
 
-# Phase 13: the three end-to-end programs of the port at the JAX package's
-# recorded configurations. Run a is `DTU_r05.json`'s: 49 views of 1600 x
-# 1200 and its 20 rounds. Views and resolution are never cut; should the
-# script outgrow its time, `--max-rounds` (depth) is the one to cut.
+# Phase 13: the three end-to-end programs of the port, a, b and c at the
+# JAX package's recorded configurations, d at 312 views. Run a is
+# `DTU_r05.json`'s: 49 views of 1600 x 1200 and its 20 rounds. Views and
+# resolution are never cut; should the script outgrow its time,
+# `--max-rounds` (depth) is the one to cut, run d's first.
 DTU_RUNS = (
     # label, program, flags, the JAX package's record of the configuration
+    # (None: there is none)
     ("a", "dtu_scale_run",
      ["--kp", "8192", "--max-per-cell", "6", "--nm-iters", "120",
       "--expand-nm-iters", "40", "--score-views", "25", "--grid-scale", "8",
       "--max-rounds", "20"], "DTU_r05.json"),
     ("b", "dtu_layout_run", [], "DTU_LAYOUT_r04.json"),
     ("c", "occlusion_run", [], "OCCLUSION_r05.json"),
+    # Run a's program and flags at Middlebury `temple`'s 312 views of 640 x
+    # 480: the focal length keeps run a's field of view (2900 x 640 /
+    # 1600), grid_scale 4 about its patch density on the object (cells of
+    # 4 x 0.560 mm against 8 x 0.224), 12 rounds. No JAX record exists at
+    # this configuration.
+    ("d", "dtu_scale_run",
+     ["--kp", "4096", "--max-per-cell", "6", "--nm-iters", "120",
+      "--expand-nm-iters", "40", "--score-views", "25", "--grid-scale", "4",
+      "--max-rounds", "12", "--views", "312", "--width", "640", "--height",
+      "480", "--focal", "1160"], None),
 )
 # Quality gates, each from the JAX package's record of the same run (its
 # value in the comment); quality, not speed.
 DTU_PIXEL_MM = 650.0 / 2900.0  # run a's pixel footprint, 0.224 mm
+DTU_D_PIXEL_MM = 650.0 / 1160.0  # run d's pixel footprint, 0.560 mm
 DTU_GATES = {
     # exact median < one pixel footprint (0.1636), completeness under 2 mm
     # >= 0.95 (0.9994), final patches >= 10,000 (16,595)
@@ -2008,6 +2078,15 @@ DTU_GATES = {
         ("kept_gt_dist_median",
          art["occlusion_filter"]["kept"].get("gt_dist_median",
                                               float("inf")), "<", 2.0)],
+    # No record: run a's gates in absolute quality against the sphere, at
+    # run d's pixel footprint; final patches >= 5,000 (about 10,000
+    # expected from run a's 16,594 at its cell size)
+    "d": lambda art: [
+        ("accuracy_exact_median",
+         art["quality_mm"]["accuracy_exact_median"], "<", DTU_D_PIXEL_MM),
+        ("completeness_frac_under",
+         art["quality_mm"]["completeness_frac_under"], ">=", 0.95),
+        ("patches", art["patches"], ">=", 5_000)],
 }
 
 
@@ -2074,15 +2153,25 @@ def _dtu_check(label, artifact, launches, plain, peak, wall):
     }
     if "occlusion_filter" in artifact:
         line["occlusion_filter"] = artifact["occlusion_filter"]
+    sides = [artifact.get("tail_mm", {}).get(k, {})
+             for k in ("tail", "inliers")]
+    if sum(side.get("count", 0) for side in sides):
+        # Mean visible views per final patch, from the two populations'
+        # means (each rounded to 2 decimals).
+        line["visible_views_mean"] = round(
+            sum(side.get("count", 0) * side.get("visible_views_mean", 0.0)
+                for side in sides)
+            / sum(side.get("count", 0) for side in sides), 2)
     print(f"[dtu] {label} {name}: {json.dumps(line)}", flush=True)
-    want = json.loads((ROOT / record).read_text())
-    want_counts = _dtu_counts(want)
-    shared = {k: (v, want_counts[k], round(100.0 * (v - want_counts[k])
-                                            / want_counts[k], 2))
-              for k, v in counts.items()
-              if want_counts.get(k)}
-    print(f"[dtu] {label} against {record} (port, JAX record, diff %, for "
-          f"information): {json.dumps(shared)}", flush=True)
+    if record is not None:
+        want = json.loads((ROOT / record).read_text())
+        want_counts = _dtu_counts(want)
+        shared = {k: (v, want_counts[k], round(100.0 * (v - want_counts[k])
+                                                / want_counts[k], 2))
+                  for k, v in counts.items()
+                  if want_counts.get(k)}
+        print(f"[dtu] {label} against {record} (port, JAX record, diff %, "
+              f"for information): {json.dumps(shared)}", flush=True)
     check(launches > 0, f"[dtu] {label}: the all-views kernel was never "
           "launched")
     check(plain == 0, f"[dtu] {label}: {plain} plain scoring calls")
@@ -2093,9 +2182,9 @@ def _dtu_check(label, artifact, launches, plain, peak, wall):
 
 
 def phase_dtu(device):
-    """Phase 13: the three end-to-end programs on the card at the JAX
-    package's recorded configurations; returns the K1 launches of each
-    run by label."""
+    """Phase 13: the three end-to-end programs on the card, runs a, b and c
+    at the JAX package's recorded configurations and d at 312 views;
+    returns the K1 launches of each run by label."""
     launches = {}
     for label, *_ in DTU_RUNS:
         artifact, k1, plain, peak, wall, _ = dtu_run(label, device)
@@ -2407,7 +2496,7 @@ def time_allview(device):
     from densepoints_tpu_torch.ops import allview_ncc, warp_ncc
     from densepoints_tpu_torch.ops.warp import compact_visible
     from densepoints_tpu_torch.pmvs.optimize import _anchor_chunks
-    from densepoints_tpu_torch.scripts import _rigs
+    from densepoints_tpu_torch.scripts import _rigs, _timing
 
     out = {"root": str(ROOT), "card": torch.cuda.get_device_name(0)}
 
@@ -2454,9 +2543,90 @@ def time_allview(device):
     run("refine_k11", lambda vis: compact_visible(vis, 8), True, *refine, 11)
     run("refine_k16", None, False, *refine, 16)
     del refine
-    run("dtu_k16", lambda vis: _anchor_chunks(vis, 16)[0], False,
-        *_rigs.dtu_inputs(device), 16)
+    dtu = _rigs.dtu_inputs(device)
+    run("dtu_k16", lambda vis: _anchor_chunks(vis, 16)[0], False, *dtu, 16)
+    cams, images, pos, nrm, ref, vis = dtu
+    run("dtu_k16_b512", lambda vis: _anchor_chunks(vis, 16)[0], False, cams,
+        images, pos[:512], nrm[:512], ref[:512], vis[:512], 16)
+    del dtu, cams, images, pos, nrm, ref, vis
+    torch.cuda.empty_cache()
+    # K1 past 254 views, beside its bound; a tree whose kernel refuses the
+    # shape records the refusal.
+    for V, B, k in ((312, 4096, 11), (312, 4096, 16), (1100, 256, 11)):
+        label = f"v{V}_b{B}_k{k}"
+        cams, images, pos, nrm, ref, vis = awkward_rig(device, V, B, k)
+        try:
+            got = allview_ncc.allview_scores(images, cams, pos, nrm, ref, vis,
+                                             k)
+        except ValueError as exc:
+            out[f"{label}_ms"] = f"refused: {exc}"
+            continue
+        run(label, None, False, cams, images, pos, nrm, ref, vis, k)
+        out[f"{label}_bound_ms"] = list(_timing.bound(*_timing.allview_counts(
+            images, cams, pos, nrm, ref, vis, got, k)))
+        del cams, images, pos, nrm, ref, vis, got
+        torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
+
+
+def dump_scores(device, path):
+    """The `--dump-scores FILE` mode: K1's (scores, anchor, anchor_ok) and
+    K2's scores at the refine shape (k = 11 and 16), the DTU shape (k = 16,
+    K2 on its four chunks) and the awkward shapes of at most 254 views
+    (K2 on their slot tables), saved to FILE with `torch.save`, so that two
+    checkouts' kernels can be held equal bitwise (`--compare-scores`)."""
+    import torch
+
+    from densepoints_tpu_torch.ops import allview_ncc, warp_ncc
+    from densepoints_tpu_torch.ops.warp import compact_visible
+    from densepoints_tpu_torch.pmvs.optimize import _anchor_chunks
+    from densepoints_tpu_torch.scripts import _rigs
+
+    out = {}
+
+    def save(label, cams, images, pos, nrm, ref, vis, k, tables):
+        got = allview_ncc.allview_scores(images, cams, pos, nrm, ref, vis, k)
+        for name, t in zip(("scores", "anchor", "anchor_ok"), got):
+            out[f"allview {label} {name}"] = t.cpu()
+        for name, (ids, ok) in tables.items():
+            out[f"slot {label} {name}"] = warp_ncc.slot_scores(
+                images, cams, pos, nrm, ref, ids, ok, k).cpu()
+
+    refine = _rigs.refine_inputs(device)
+    for k in (11, 16):
+        save(f"refine k={k}", *refine, k,
+             {"M=8": compact_visible(refine[5], 8)})
+    del refine
+    dtu = _rigs.dtu_inputs(device)
+    save("dtu k=16", *dtu, 16,
+         {f"chunk {c}": t for c, t in enumerate(_anchor_chunks(dtu[5], 16))})
+    del dtu
+    torch.cuda.empty_cache()
+    for V, B, k in AWKWARD_SHAPES:
+        rig = awkward_rig(device, V, B, k)
+        tables = {"M=16": compact_visible(rig[5], 16)}
+        if V == 8:
+            tables["M=1"] = compact_visible(rig[5], 1)
+        save(f"V={V} B={B} k={k}", *rig, k, tables)
+    torch.save(out, path)
+    print(json.dumps({"root": str(ROOT), "dumped": len(out),
+                      "path": str(path)}), flush=True)
+
+
+def compare_scores(first, second):
+    """The `--compare-scores A B` mode: the outputs two `--dump-scores`
+    runs saved, held equal key by key with `torch.equal`; fails unless
+    both hold the same keys and every pair is equal."""
+    import torch
+
+    a, b = torch.load(first), torch.load(second)
+    differ = sorted(k for k in a.keys() & b.keys()
+                    if not torch.equal(a[k], b[k]))
+    print(json.dumps({"keys": len(a), "equal": len(a) - len(differ),
+                      "differ": differ,
+                      "missing": sorted(a.keys() ^ b.keys())}), flush=True)
+    check(a.keys() == b.keys(), "the two dumps hold different outputs")
+    check(not differ, f"outputs differ: {differ}")
 
 
 def profile_main(device):
@@ -2623,6 +2793,45 @@ def _ptxas_resources(source):
     return dict(zip(names, found.values()))
 
 
+def _spill_lines(source):
+    """Where the local-memory spills of the kernel instances in `source`
+    sit: compiled for sm_90a with line info, disassembled (`nvdisasm -g`),
+    the spill stores and loads (STL, LDL) counted by source line, keyed
+    `name<T>` by the first template argument."""
+    import collections
+    import re
+
+    from densepoints_tpu_torch.ops import _build
+
+    bin_dir = Path(_build._nvcc()).parent
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cubin = Path(tmp) / "kernels.cubin"
+        proc = subprocess.run(
+            [str(bin_dir / "nvcc"), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-lineinfo", "-cubin", "-o", str(cubin),
+             str(source)], capture_output=True, text=True)
+        check(proc.returncode == 0, f"nvcc failed: {proc.stderr}")
+        proc = subprocess.run([str(bin_dir / "nvdisasm"), "-g", "-c",
+                               str(cubin)], capture_output=True, text=True)
+    check(proc.returncode == 0, f"nvdisasm failed: {proc.stderr}")
+    counts = collections.defaultdict(collections.Counter)
+    name, where = None, "?"
+    for line in proc.stdout.splitlines():
+        m = re.match(r"\s*\.text\.\S*?\d([a-z_]+_kernel)ILi(-?\d+)E\S*:",
+                     line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>"
+            continue
+        m = re.search(r'//## File "([^"]+)", line (\d+)', line)
+        if m:
+            where = f"{Path(m.group(1)).name}:{m.group(2)}"
+            continue
+        m = re.search(r"\b(STL|LDL)\b", line)
+        if m and name:
+            counts[name][f"{m.group(1)} {where}"] += 1
+    return {k: dict(v.most_common()) for k, v in counts.items()}
+
+
 def _library_sass():
     """Instruction count and a digest of the SASS (addresses and encodings
     left out) of every function in the library the package built, keyed by
@@ -2657,9 +2866,10 @@ def _library_sass():
 def kernel_resources(device):
     """The `--kernel-resources` mode: registers, spills and stack of every
     kernel instance of the warp + NCC kernels, the row-wise NCC kernel and
-    the two window kernels, and the SASS digest of every function of the
-    built library, one JSON line. Fails if an instance of the row-wise NCC
-    kernel spills."""
+    the two window kernels, the source lines of the warp + NCC kernels'
+    spills, and the SASS digest of every function of the built library,
+    one JSON line. Fails if an instance of the row-wise NCC kernel
+    spills."""
     out = {"root": str(ROOT)}
     for name in ("allview_ncc", "slot_ncc", "ncc_pairs", "window_ncc",
                  "window_textures"):
@@ -2668,6 +2878,10 @@ def kernel_resources(device):
     spills = [k for k, v in out["ncc_pairs"].items()
               if v["spill_store_bytes"] or v["spill_load_bytes"]]
     check(not spills, f"row-wise NCC instances spill: {spills}")
+    out["spill_lines"] = {
+        name: _spill_lines(
+            ROOT / "densepoints_tpu_torch" / "csrc" / f"{name}.cu")
+        for name in ("allview_ncc", "slot_ncc")}
     out["sass"] = _library_sass()
     print(json.dumps(out), flush=True)
 
@@ -2700,6 +2914,17 @@ def main() -> int:
              "--parallel": parallel_only, "--dtu": dtu_only,
              "--measure": measure_only, "--bench": bench_only,
              "--profile-dtu": profile_dtu}
+    if len(sys.argv) == 4 and sys.argv[1] == "--compare-scores":
+        try:
+            compare_scores(Path(sys.argv[2]), Path(sys.argv[3]))
+        except SmokeFailure as exc:
+            print(f"FAIL: {exc}", flush=True)
+            return 1
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--dump-scores":
+        path = Path(sys.argv[2])
+        modes[sys.argv[1]] = lambda device: dump_scores(device, path)
+        del sys.argv[2]
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         try:
             phase_device()

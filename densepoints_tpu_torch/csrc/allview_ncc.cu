@@ -21,14 +21,16 @@
 // The design (`score_row` in warp_ncc_common.cuh) therefore spends as few
 // operations per texel as the contract allows and keeps every warp busy:
 // one warp owns one patch and never waits for another (no block barrier);
-// four lanes set up each visible view once (camera, corner test, texel
-// homography, all from position, normal and the reference view, so no frame
-// array passes through device memory); a ballot names the anchor and the
-// live views; the anchor texture is sampled into registers and kept there
-// centred; then the warp takes its live views one after another, the whole
-// texture of a view in registers, every tap loaded before any is blended,
-// statistics by warp shuffles, one score written per view. A block is four
-// such warps, and 28 warps fit an SM.
+// it takes the views in tiles of 32, a ballot of the visibility flags per
+// tile, so any number of views fits its shared memory; four lanes set up
+// each visible view of a tile once (camera, corner test, texel homography,
+// all from position, normal and the reference view, so no frame array
+// passes through device memory); the first tile with a flag names the
+// anchor; the anchor texture is sampled once and kept centred in shared
+// memory; then the warp takes the live views of each tile one after
+// another, the whole texture of a view in registers, every tap loaded
+// before any is blended, statistics by warp shuffles, one score written per
+// view. A block is four such warps, and 28 warps fit an SM.
 // Nothing here needs a gradient: Nelder-Mead is derivative-free.
 
 #include "warp_ncc_common.cuh"
@@ -60,7 +62,7 @@ __global__ void __launch_bounds__(kRowWarps * 32, kRowBlocks)
   const VisibilityRow row{vis + b * sc.V, sc.V};
   score_row<T>(sc, b, row, scores + b * sc.V, anchor_out + b,
                anchor_ok_out + b,
-               smem + warp * row_smem_words(sc.k, sc.V));
+               smem + warp * row_smem_words(sc.k));
 }
 
 }  // namespace
@@ -71,9 +73,9 @@ extern "C" int allview_ncc_launch(
     const int* height, const float* position, const float* normal,
     const int64_t* ref, const uint8_t* vis, int64_t B, int k, float* scores,
     int64_t* anchor, uint8_t* anchor_ok, void* stream) {
-  const Scene sc{images, (int)V, (int)H, (int)W, K,      E,   C, x_axis,
-                 width,  height, position, normal, ref, B, k};
-  const size_t smem = kRowWarps * row_smem_words(k, (int)V) * sizeof(float);
+  const Scene sc = make_scene(images, V, H, W, K, E, C, x_axis, width,
+                              height, position, normal, ref, B, k);
+  const size_t smem = kRowWarps * row_smem_words(k) * sizeof(float);
   const unsigned int grid = (unsigned int)((B + kRowWarps - 1) / kRowWarps);
   cudaStream_t st = (cudaStream_t)stream;
 #define LAUNCH(T)                                       \

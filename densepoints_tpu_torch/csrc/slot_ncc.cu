@@ -24,11 +24,12 @@
 // are the image stack once (or, when few slots are set, only the 4 taps of
 // every sampled texel) plus one f32 per slot. The design is that of
 // allview_ncc.cu (`score_row` in warp_ncc_common.cuh) over slots instead of
-// views: one warp owns one patch, four lanes set up each ok slot once, the
-// anchor texture of slot 0 is sampled into registers and kept there centred,
-// then the warp takes its live slots one after another with the whole
-// texture in registers and every tap in flight. Slots with ok unset are
-// neither set up nor sampled.
+// views: one warp owns one patch and takes its slots in tiles of 32 (a
+// table of any width fits its shared memory), four lanes set up each ok slot
+// of a tile once, the anchor texture of slot 0 is sampled once and kept
+// centred in shared memory, then the warp takes the live slots of each tile
+// one after another with the whole texture in registers and every tap in
+// flight. Slots with ok unset are neither set up nor sampled.
 
 #include "warp_ncc_common.cuh"
 
@@ -60,7 +61,7 @@ __global__ void __launch_bounds__(kRowWarps * 32, kRowBlocks)
   if (b >= sc.B) return;  // whole warps leave; nobody waits for them
   const SlotRow row{view_ids + b * M, ok + b * M, M, sc.V};
   score_row<T>(sc, b, row, scores + b * M, nullptr, nullptr,
-               smem + warp * row_smem_words(sc.k, M));
+               smem + warp * row_smem_words(sc.k));
 }
 
 }  // namespace
@@ -71,9 +72,9 @@ extern "C" int slot_ncc_launch(
     const int* height, const float* position, const float* normal,
     const int64_t* ref, const int* view_ids, const uint8_t* ok, int64_t B,
     int64_t M, int k, float* scores, void* stream) {
-  const Scene sc{images, (int)V, (int)H, (int)W, K,      E,   C, x_axis,
-                 width,  height, position, normal, ref, B, k};
-  const size_t smem = kRowWarps * row_smem_words(k, (int)M) * sizeof(float);
+  const Scene sc = make_scene(images, V, H, W, K, E, C, x_axis, width,
+                              height, position, normal, ref, B, k);
+  const size_t smem = kRowWarps * row_smem_words(k) * sizeof(float);
   const unsigned int grid = (unsigned int)((B + kRowWarps - 1) / kRowWarps);
   cudaStream_t st = (cudaStream_t)stream;
 #define LAUNCH(T)                                    \

@@ -10,11 +10,12 @@
 // A warp never waits for another: there is no block barrier, and a block is
 // just kRowWarps patches.
 //
-//   1. Set-up, once per (patch, entry), four lanes per entry: the patch frame
-//      (sx, sy) from position, normal and the reference camera, exactly as
-//      `ops.warp.patch_frames` defines it; the entry's camera; the strict
-//      4-corner bounds test through the decomposed projection K (R (X - C)),
-//      a corner per lane; and the texel homography, a column per lane.
+//   1. Set-up, once per flagged (patch, entry), four lanes per entry: the
+//      patch frame (sx, sy) from position, normal and the reference camera,
+//      exactly as `ops.warp.patch_frames` defines it; the entry's camera;
+//      the strict 4-corner bounds test through the decomposed projection
+//      K (R (X - C)), a corner per lane; and the texel homography, a column
+//      per lane.
 //      Texel (r, c) of the k x k texture lies at
 //      X = p + (2c/k - 1) sx + (2r/k - 1) sy, which is affine in (c, r), so
 //      its homogeneous pixel is A + c B + r Cc with A = K (R (p - sx - sy -
@@ -24,17 +25,29 @@
 //      quotient is a few pixels, so the f32 pixel carries one rounding at
 //      its own magnitude (what a pixel near 1600 can hold at all) and none
 //      of the roundings of a projection at magnitude |K R (X - C)|.
-//      Ballots over the flags give the anchor and the live entries
-//      (flagged, corners inside, not the anchor) as bit masks in the warp's
-//      shared memory; the lanes write the -1 sentinel of every other entry.
-//   2. The anchor texture: a lane holds T = ceil(k k / 32) texels in
-//      registers, loads all 4 T taps before it blends any, and keeps its
-//      texels centred in registers.
-//   3. The live entries one after another, each texture sampled the same
-//      way into the same lanes, so mean, centred variance and covariance
-//      against the anchor come from registers and warp shuffles only; lane 0
-//      writes the score. Textures above 256 texels take a strided variant
-//      that keeps the anchor in shared memory and samples a view twice.
+//      The row is taken in tiles of 32 entries: one ballot gives a tile's
+//      flags, only the flagged entries are set up (so the set-up scales
+//      with the flags, not with the row), and the warp's shared memory
+//      holds one tile's entries whatever the row's length. The anchor's
+//      tile comes first; the live entries (flagged, corners inside, not the
+//      anchor) of a tile are a bit mask in registers, and the lanes write
+//      the -1 sentinel of every other entry.
+//   2. The anchor texture: a lane samples T = ceil(k k / 32) texels into
+//      registers, loading all 4 T taps before it blends any, and keeps them
+//      centred in the warp's shared memory, where it reads its own texels
+//      back for every view (held in registers, they would have to outlive
+//      each later tile's set-up).
+//   3. The live entries of each tile one after another, each texture
+//      sampled the same way into the same lanes, so mean, centred variance
+//      and covariance against the anchor come from registers, the lane's
+//      own anchor texels and warp shuffles only; lane 0 writes the score.
+//      Then the next tile's entries take the place of this one's. Textures
+//      above 256 texels take a strided variant that samples a view twice.
+//
+// Registers bound the warps an SM holds (72 a thread), so what a warp needs
+// only now and then waits elsewhere: the patch frame and the row (its
+// entries, output pointers) in shared memory, the page geometry in the
+// kernel's parameters (`make_scene`).
 //
 // The bilinear sample clamps x to [0, W-1] and x0 to [0, W-2] against the
 // (padded) stack size, in f32; offsets inside a view's page are 32-bit.
@@ -202,7 +215,7 @@ struct Page {
   int W, H;
   float wm1, hm1;  // (float)(W - 1), (float)(H - 1)
   int k, n;        // texture side and texel count
-  float inv_k;
+  float inv_k, nf;  // 1 / k and (float)n
 };
 
 // (row, column) of texel i < 78 * 78 as floats: the product below is at
@@ -341,7 +354,22 @@ struct Scene {
   const int64_t* ref;     // (B,)
   int64_t B;
   int k;
+  Page pg;  // read from the kernel's parameters where it is used
 };
+
+// The scene of a launch, its page geometry worked out once on the host.
+inline Scene make_scene(const float* images, int64_t V, int64_t H,
+                        int64_t W, const float* K, const float* E,
+                        const float* C, const float* x_axis,
+                        const int* width, const int* height,
+                        const float* position, const float* normal,
+                        const int64_t* ref, int64_t B, int k) {
+  Scene sc{images, (int)V, (int)H, (int)W, K, E, C, x_axis, width, height,
+           position, normal, ref, B, k, Page{}};
+  sc.pg = Page{(int)W, (int)H, (float)(W - 1), (float)(H - 1), k, k * k,
+               1.f / (float)k, (float)(k * k)};
+  return sc;
+}
 
 // Texels a lane holds in registers, T = ceil(k k / 32) rounded up to a power
 // of two, for textures of up to 256 texels; 0 = the strided variant.
@@ -350,15 +378,89 @@ __host__ __device__ inline int texels_per_lane(int k) {
   return n <= 32 ? 1 : n <= 64 ? 2 : n <= 128 ? 4 : n <= 256 ? 8 : 0;
 }
 
-// Shared memory of one warp, in 4-byte words: its entries, two bit masks
-// (flagged, corners inside) of one bit per entry, and for the strided
-// variant the centred anchor texture.
-__host__ __device__ inline int mask_words(int count) {
-  return (count + 31) / 32;
+// Entries a warp sets up and scores at a time: one tile, one bit per entry
+// in a ballot word.
+constexpr int kTile = 32;
+
+// Words of a warp's shared memory that hold the patch frame p, sx, sy, and
+// the row's entries, score row and anchor outputs (the `Row` of
+// `score_row`).
+constexpr int kFrameWords = 12;
+constexpr int kRowWords = 12;
+
+// Shared memory of one warp, in 4-byte words: the entries of one tile, the
+// patch frame, the row, and the centred anchor texture (32 T texels, or k k
+// in the strided variant), rounded up to 16 bytes. It does not grow with
+// the number of entries in a row.
+__host__ __device__ inline size_t row_smem_words(int k) {
+  const int T = texels_per_lane(k);
+  const size_t words = (size_t)kTile * kEntryWords + kFrameWords +
+                       kRowWords + (T > 0 ? (size_t)32 * T : (size_t)k * k);
+  return (words + 3) & ~(size_t)3;
 }
-__host__ __device__ inline size_t row_smem_words(int k, int count) {
-  return (size_t)count * kEntryWords + 2 * mask_words(count) +
-         (texels_per_lane(k) == 0 ? (size_t)k * k : 0);
+
+// Position of set bit r (counted from 0) of m, which has more than r.
+__device__ __forceinline__ int nth_set_bit(unsigned m, int r) {
+  int pos = 0;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1)
+    if (__popc(m & ((1u << (pos + s)) - 1u)) <= r) pos += s;
+  return pos;
+}
+
+// The flags of the tile of entries t, t + 1, ..., one bit per entry.
+template <class Entries>
+__device__ __forceinline__ unsigned tile_flags(const Entries& ent, int t,
+                                               int count, int lane) {
+  const int e = t + lane;
+  return __ballot_sync(kFullMask, e < count && ent.flagged(e));
+}
+
+// Set-up of the flagged entries `m` of the tile at entry t, by the whole
+// warp: four lanes per entry and eight entries per pass, in the order of
+// their bits, so the passes scale with the flags and not with the tile.
+// Lane `sub` tests corner `sub` and forms one column of the homography into
+// slot e of `entries` for entry t + e. The patch frame comes from `frame`.
+// Returns the bits of the entries whose four corners lie inside their view.
+template <class Entries>
+__device__ __forceinline__ unsigned set_up_tile(const Scene& sc,
+                                                const Entries& ent, int t,
+                                                unsigned m,
+                                                const float* frame, int lane,
+                                                float* entries) {
+  const int sub = lane & 3;
+  const unsigned group = 0xFu << (lane & ~3);
+  const int n = __popc(m);
+  unsigned inside = 0u;
+  __syncwarp();  // the frame is written; the last tile's entries are read
+  float p[3], sx[3], sy[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    p[i] = frame[i];
+    sx[i] = frame[3 + i];
+    sy[i] = frame[6 + i];
+  }
+  for (int r0 = 0; r0 < n; r0 += 8) {
+    const int r = r0 + (lane >> 2);
+    const bool flag = r < n;
+    const int e = flag ? nth_set_bit(m, r) : 0;
+    View cam;
+    int v = 0;
+    bool ok = false;
+    if (flag) {
+      v = ent.view(t + e);
+      load_view(cam, sc.K, sc.E, sc.C, sc.width, sc.height, v);
+      ok = corner_inside(cam, p, sx, sy, sub);
+    }
+    const unsigned corners = __ballot_sync(kFullMask, ok);
+    ok = ((corners >> (lane & ~3)) & 0xFu) == 0xFu;  // all four inside
+    if (ok)
+      texel_homography(cam, p, sx, sy, sc.k, group, sub, lane, v,
+                       entries + e * kEntryWords);
+    inside |= __reduce_or_sync(kFullMask, ok && sub == 0 ? 1u << e : 0u);
+  }
+  __syncwarp();
+  return inside;
 }
 
 // Scores patch b against its entries, by one whole warp. `Entries` gives
@@ -367,6 +469,7 @@ __host__ __device__ inline size_t row_smem_words(int k, int count) {
 // anchor is entry 0, or nobody if it is not flagged, and scores against
 // itself (a slot table). `anchor_out` / `anchor_ok_out` may be null.
 // T = ceil(k k / 32) texels per lane, or 0 for the strided variant.
+// `smem` holds `row_smem_words(k)` words of the warp's own.
 template <int T, class Entries>
 __device__ __forceinline__ void score_row(const Scene& sc, int64_t b,
                                           const Entries& ent, float* srow,
@@ -374,28 +477,27 @@ __device__ __forceinline__ void score_row(const Scene& sc, int64_t b,
                                           uint8_t* anchor_ok_out,
                                           float* smem) {
   const int count = ent.count();
-  const int words = mask_words(count);
-  Page pg;
-  pg.W = sc.W;
-  pg.H = sc.H;
-  pg.wm1 = (float)(sc.W - 1);
-  pg.hm1 = (float)(sc.H - 1);
-  pg.k = sc.k;
-  pg.n = sc.k * sc.k;
-  pg.inv_k = 1.f / (float)sc.k;
+  const Page& pg = sc.pg;
+  // The row's entries, score row and anchor outputs wait in shared memory,
+  // read where they are used: registers are what the tile loop runs short
+  // of.
+  struct Row {
+    Entries ent;
+    float* srow;
+    int64_t* anchor_out;
+    uint8_t* anchor_ok_out;
+  };
+  static_assert(sizeof(Row) <= 4 * kRowWords, "Row outgrows its words");
   float* entries = smem;
-  unsigned* flagged = reinterpret_cast<unsigned*>(entries + count * kEntryWords);
-  unsigned* inside = flagged + words;
-  float* ca_strided = reinterpret_cast<float*>(inside + words);
+  float* frame = smem + kTile * kEntryWords;
+  Row* row = reinterpret_cast<Row*>(frame + kFrameWords);
+  float* anchor_tex = frame + kFrameWords + kRowWords;
   const int lane = threadIdx.x & 31;
+  if (lane == 0) *row = Row{ent, srow, anchor_out, anchor_ok_out};
 
-  // 1. Set-up, four lanes per entry and eight entries per pass: lane `sub`
-  // tests corner `sub` and forms one column of the homography.
-  const int sub = lane & 3;
-  const unsigned group = 0xFu << (lane & ~3);
-  float p[3], sx[3], sy[3];
+  // The patch frame, into shared memory: only a tile's set-up reads it.
   {
-    float nrm[3], xa[3];
+    float p[3], sx[3], sy[3], nrm[3], xa[3];
     int64_t r = sc.ref[b];
     r = r < 0 ? 0 : (r >= sc.V ? sc.V - 1 : r);
     View ref;
@@ -407,127 +509,118 @@ __device__ __forceinline__ void score_row(const Scene& sc, int64_t b,
       xa[i] = sc.x_axis[r * 3 + i];
     }
     patch_frame(ref, xa, p, nrm, sc.k, sx, sy);
-  }
-  // A pass writes one byte of each mask; the last word's other bytes are 0.
-  if (lane < 2 * words) flagged[lane] = 0u;
-  for (int w = 32 + lane; w < 2 * words; w += 32) flagged[w] = 0u;
-  __syncwarp();
-  uint8_t* flagged_bytes = reinterpret_cast<uint8_t*>(flagged);
-  uint8_t* inside_bytes = reinterpret_cast<uint8_t*>(inside);
-  for (int e0 = 0; e0 < count; e0 += 8) {
-    const int e = e0 + (lane >> 2);
-    const bool flag = e < count && ent.flagged(e);
-    View cam;
-    int v = 0;
-    bool ok = false;
-    if (flag) {
-      v = ent.view(e);
-      load_view(cam, sc.K, sc.E, sc.C, sc.width, sc.height, v);
-      ok = corner_inside(cam, p, sx, sy, sub);
-    }
-    const unsigned corners = __ballot_sync(kFullMask, ok);
-    ok = ((corners >> (lane & ~3)) & 0xFu) == 0xFu;  // all four inside
-    if (ok)
-      texel_homography(cam, p, sx, sy, sc.k, group, sub, lane, v,
-                       entries + e * kEntryWords);
-    // Bits 0, 4, ..., 28 of the ballots are this pass's 8 entries.
-    const unsigned fb = __ballot_sync(kFullMask, flag);
-    const unsigned ib = __ballot_sync(kFullMask, ok);
     if (lane == 0) {
-      unsigned f = 0, g = 0;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        f |= ((fb >> (4 * j)) & 1u) << j;
-        g |= ((ib >> (4 * j)) & 1u) << j;
+      for (int i = 0; i < 3; ++i) {
+        frame[i] = p[i];
+        frame[3 + i] = sx[i];
+        frame[6 + i] = sy[i];
       }
-      flagged_bytes[e0 >> 3] = (uint8_t)f;
-      inside_bytes[e0 >> 3] = (uint8_t)g;
     }
   }
-  __syncwarp();
+  __syncwarp();  // the frame and the row are written
 
-  // Everything below branches on shared memory only: uniform in the warp.
+  // The anchor's tile t0. A visibility row's anchor is its first flagged
+  // entry, so the tiles before t0 hold no flag and score -1 throughout.
+  // Everything below branches on ballots only: uniform in the warp.
+  int t0 = 0;
+  unsigned flags = tile_flags(ent, 0, count, lane);
+  if (!Entries::kSlots) {
+    while (flags == 0u && t0 + kTile < count) {
+      srow[t0 + lane] = -1.f;
+      t0 += kTile;
+      flags = tile_flags(ent, t0, count, lane);
+    }
+  }
   int anchor = -1;
-  if (Entries::kSlots) {
-    anchor = (flagged[0] & 1u) ? 0 : -1;
-  } else {
-    for (int w = 0; w < words; ++w) {
-      const unsigned m = flagged[w];
-      if (m) {
-        anchor = w * 32 + __ffs(m) - 1;
-        break;
-      }
-    }
-  }
-  const bool aok =
-      anchor >= 0 && ((inside[anchor >> 5] >> (anchor & 31)) & 1u);
-  for (int e = lane; e < count; e += 32) {
-    const bool live = aok && e != anchor && ((inside[e >> 5] >> (e & 31)) & 1u);
-    const bool self = Entries::kSlots && aok && e == anchor;
-    if (!live && !self) srow[e] = -1.f;
-  }
-  if (lane == 0 && anchor_out) {
-    *anchor_out = anchor < 0 ? 0 : anchor;
-    *anchor_ok_out = aok ? 1 : 0;
-  }
-  if (!aok) return;
+  if (Entries::kSlots)
+    anchor = (flags & 1u) ? 0 : -1;
+  else if (flags)
+    anchor = t0 + __ffs(flags) - 1;
 
-  // 2. The anchor texture, centred: in the registers that hold the same
-  // texels of every view later (in shared memory for the strided variant).
   const size_t page = (size_t)sc.H * (size_t)sc.W;
-  const float nf = (float)pg.n;
+  const float nf = pg.nf;
   constexpr int kRegs = T > 0 ? T : 1;
-  float rf[kRegs], cf[kRegs], ca[kRegs];
-  float sa;
-  {
-    const float* entry = entries + anchor * kEntryWords;
-    const float* img = sc.images + (size_t)__float_as_int(entry[11]) * page;
+  float sa = 0.f;
+  // Tile by tile from t0: 1. set up the flagged entries; 2. in t0, the
+  // anchor texture; 3. write -1 for every entry that is not live, then
+  // score the live ones in turn, every tap of a texture in flight at once.
+  for (int t = t0; t < count; t += kTile) {
+    if (t != t0) flags = tile_flags(row->ent, t, count, lane);
+    unsigned live = 0u;
+    if (flags && anchor >= 0)
+      live = set_up_tile(sc, row->ent, t, flags, frame, lane, entries);
+    // The texels a lane takes, found anew after every set-up (the empty
+    // asm keeps the compiler from holding them through one).
+    int base = 0;
+    asm volatile("" : "+r"(base));
+    float rf[kRegs], cf[kRegs];
     if constexpr (T > 0) {
 #pragma unroll
       for (int j = 0; j < T; ++j) {
-        const int i = lane + 32 * j;
+        const int i = lane + 32 * j + base;
         texel_row_col(pg, i < pg.n ? i : 0, rf[j], cf[j]);
       }
-      const float s = warp_texture<T>(img, entry, pg, rf, cf, lane, ca);
-      const float mean = warp_sum(s) / nf;
-      float q = 0.f;
-#pragma unroll
-      for (int j = 0; j < T; ++j) {
-        ca[j] = lane + 32 * j < pg.n ? ca[j] - mean : 0.f;
-        q += ca[j] * ca[j];
-      }
-      sa = sqrtf(warp_sum(q) / nf);
-    } else {
-      float h[11];
-#pragma unroll
-      for (int i = 0; i < 11; ++i) h[i] = entry[i];
-      float s = 0.f;
-      for (int i = lane; i < pg.n; i += 32) {
-        const float t = sample_texel(img, h, pg, i);
-        ca_strided[i] = t;
-        s += t;
-      }
-      const float mean = warp_sum(s) / nf;
-      float q = 0.f;
-      for (int i = lane; i < pg.n; i += 32) {
-        const float d = ca_strided[i] - mean;
-        ca_strided[i] = d;
-        q += d * d;
-      }
-      sa = sqrtf(warp_sum(q) / nf);
     }
-    // The anchor against itself: covariance == variance == sa * sa.
-    if (Entries::kSlots && lane == 0)
-      srow[anchor] = (sa * sa) / fmaxf(sa * sa, 0.1f);
-  }
-
-  // 3. The live entries in turn, every tap of a texture in flight at once.
-  for (int w = 0; w < words; ++w) {
-    unsigned m = inside[w];
-    if ((anchor >> 5) == w) m &= ~(1u << (anchor & 31));
-    while (m) {
-      const int e = w * 32 + __ffs(m) - 1;
-      m &= m - 1;
+    if (t == t0) {
+      const bool aok = anchor >= 0 && ((live >> (anchor - t0)) & 1u);
+      if (lane == 0 && row->anchor_out) {
+        *row->anchor_out = anchor < 0 ? 0 : anchor;
+        *row->anchor_ok_out = aok ? 1 : 0;
+      }
+      if (!aok) {
+        for (int e = t0 + lane; e < count; e += 32) row->srow[e] = -1.f;
+        return;
+      }
+      live &= ~(1u << (anchor - t0));
+      // 2. The anchor texture, centred, into the warp's shared memory,
+      // where each lane reads its own texels back for every view.
+      const float* entry = entries + (anchor - t0) * kEntryWords;
+      const float* img =
+          sc.images + (size_t)__float_as_int(entry[11]) * page;
+      if constexpr (T > 0) {
+        float ca[T];
+        const float s = warp_texture<T>(img, entry, pg, rf, cf, lane, ca);
+        const float mean = warp_sum(s) / nf;
+        float q = 0.f;
+#pragma unroll
+        for (int j = 0; j < T; ++j) {
+          const float c = lane + 32 * j < pg.n ? ca[j] - mean : 0.f;
+          anchor_tex[lane + 32 * j] = c;
+          q += c * c;
+        }
+        sa = sqrtf(warp_sum(q) / nf);
+      } else {
+        float h[11];
+#pragma unroll
+        for (int i = 0; i < 11; ++i) h[i] = entry[i];
+        float s = 0.f;
+        for (int i = lane; i < pg.n; i += 32) {
+          const float v = sample_texel(img, h, pg, i);
+          anchor_tex[i] = v;
+          s += v;
+        }
+        const float mean = warp_sum(s) / nf;
+        float q = 0.f;
+        for (int i = lane; i < pg.n; i += 32) {
+          const float d = anchor_tex[i] - mean;
+          anchor_tex[i] = d;
+          q += d * d;
+        }
+        sa = sqrtf(warp_sum(q) / nf);
+      }
+      // The anchor against itself: covariance == variance == sa * sa.
+      if (Entries::kSlots && lane == 0)
+        row->srow[anchor] = (sa * sa) / fmaxf(sa * sa, 0.1f);
+    }
+    // 3. The sentinels of the tile, then its live entries.
+    const int mine = t + lane;
+    if (mine < count && !((live >> lane) & 1u) &&
+        !(Entries::kSlots && mine == anchor))
+      row->srow[mine] = -1.f;
+    while (live) {
+      const int e = __ffs(live) - 1;
+      live &= live - 1;
       const float* entry = entries + e * kEntryWords;
       const float* img = sc.images + (size_t)__float_as_int(entry[11]) * page;
       float var = 0.f, cov = 0.f;
@@ -537,10 +630,11 @@ __device__ __forceinline__ void score_row(const Scene& sc, int64_t b,
         const float mean = warp_sum(s) / nf;
 #pragma unroll
         for (int j = 0; j < T; ++j) {
-          // ca is 0 past the texture's end; the variance needs the mask.
+          // The anchor texture is 0 past its end; the variance needs the
+          // mask.
           const float d = lane + 32 * j < pg.n ? tex[j] - mean : 0.f;
           var = fmaf(d, d, var);
-          cov = fmaf(d, ca[j], cov);
+          cov = fmaf(d, anchor_tex[lane + 32 * j], cov);
         }
       } else {
         // Two sampling passes; the second finds its taps in L1.
@@ -553,11 +647,11 @@ __device__ __forceinline__ void score_row(const Scene& sc, int64_t b,
         for (int i = lane; i < pg.n; i += 32) {
           const float d = sample_texel(img, h, pg, i) - mean;
           var = fmaf(d, d, var);
-          cov = fmaf(d, ca_strided[i], cov);
+          cov = fmaf(d, anchor_tex[i], cov);
         }
       }
       const float score = ncc_score(warp_sum(cov), warp_sum(var), nf, sa);
-      if (lane == 0) srow[e] = score;
+      if (lane == 0) row->srow[t + e] = score;
     }
   }
 }

@@ -127,22 +127,32 @@ def check_tensor(name, t, device, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-# Mirrors of csrc/warp_ncc_common.cuh: patches (warps) of a block, words of
-# shared memory per entry, the largest texture side whose texels a warp holds
-# in registers, and the static limit of a block's shared memory.
+# Mirrors of csrc/warp_ncc_common.cuh: patches (warps) of a block, entries
+# of a tile, words of shared memory per entry, for the patch frame and for
+# the row, and the static limit of a block's shared memory.
 _WARP_NCC_WARPS = 4
+_WARP_NCC_TILE = 32
 _WARP_NCC_ENTRY_WORDS = 12
-_WARP_NCC_REGISTER_K = 16
+_WARP_NCC_FRAME_WORDS = 12
+_WARP_NCC_ROW_WORDS = 12
 _SMEM_LIMIT_BYTES = 48 * 1024
 
 
-def check_warp_scene(images, cameras_K, position, normal, ref, k, entries):
+def _texels_per_lane(k):
+    """`texels_per_lane`: texels a lane holds, 0 above 256 (strided)."""
+    n = k * k
+    return 1 if n <= 32 else 2 if n <= 64 else 4 if n <= 128 else (
+        8 if n <= 256 else 0)
+
+
+def check_warp_scene(images, cameras_K, position, normal, ref, k):
     """Raise `ValueError` unless the warp + NCC kernels take these shapes:
     a (V, H, W) stack with H, W >= 2 and H * W below 2^31 (offsets inside a
     view's page are 32-bit), `position`, `normal` (B, 3) and `ref` (B,) of
-    one batch size, and a texture side `k` and `entries` view entries per
-    patch that fit a block's shared memory. Shapes only: no
-    tensor is read, so it runs before any launch and on any device."""
+    one batch size, and a texture side `k` that fits a block's shared
+    memory (k <= 51). The number of view entries per patch is not limited:
+    a warp takes them a tile at a time. Shapes only: no tensor is read, so
+    it runs before any launch and on any device."""
     if images.ndim != 3:
         raise ValueError(
             f"images has shape {tuple(images.shape)}, expected (V, H, W)"
@@ -167,16 +177,20 @@ def check_warp_scene(images, cameras_K, position, normal, ref, k, entries):
                 f"{name} has shape {tuple(t.shape)}, expected {shape}: "
                 "position, normal and ref are one batch"
             )
-    words = _WARP_NCC_ENTRY_WORDS * entries + 2 * -(-entries // 32)
-    if k > _WARP_NCC_REGISTER_K:
-        words += k * k  # the anchor texture of the strided variant
+    # A tile's entries, the frame, the row and the anchor texture (32 T
+    # texels, or k * k in the strided variant), rounded up to 16 bytes, for
+    # each warp of a block.
+    T = _texels_per_lane(k)
+    words = (_WARP_NCC_ENTRY_WORDS * _WARP_NCC_TILE + _WARP_NCC_FRAME_WORDS
+             + _WARP_NCC_ROW_WORDS + (32 * T if T else k * k))
+    words = -(-words // 4) * 4
     if k < 1 or 4 * _WARP_NCC_WARPS * words > _SMEM_LIMIT_BYTES:
         raise ValueError(
-            f"texture_size {k} with {entries} view entries outside the "
-            f"kernel's range: k >= 1 and, for each of the "
-            f"{_WARP_NCC_WARPS} patches of a block, 12 words per entry (and "
-            f"k * k above k = {_WARP_NCC_REGISTER_K}) within "
-            f"{_SMEM_LIMIT_BYTES} bytes of shared memory"
+            f"texture_size {k} outside the kernel's range: k >= 1 and, for "
+            f"each of the {_WARP_NCC_WARPS} patches of a block, the "
+            f"{_WARP_NCC_TILE} entries of a tile, the patch frame, the row "
+            f"and the anchor texture within {_SMEM_LIMIT_BYTES} bytes of "
+            "shared memory"
         )
     return V, H, W, B
 

@@ -77,7 +77,7 @@ def allview_scores_cuda(
     global KERNEL_LAUNCHES
     k = int(texture_size)
     V, H, W, B = _build.check_warp_scene(
-        images, K, position, normal, ref, k, entries=images.shape[0]
+        images, K, position, normal, ref, k
     )
     dev = images.device
     if dev.type != "cuda":

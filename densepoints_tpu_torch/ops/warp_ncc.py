@@ -83,7 +83,7 @@ def slot_scores_cuda(
         )
     M = view_ids.shape[1]
     V, H, W, B = _build.check_warp_scene(
-        images, K, position, normal, ref, k, entries=M
+        images, K, position, normal, ref, k
     )
     dev = images.device
     if dev.type != "cuda":

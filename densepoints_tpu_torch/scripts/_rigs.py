@@ -245,3 +245,41 @@ def sphere_seeds(n=3000, radius=150.0):
     seeds = g.standard_normal((n, 3)).astype(np.float32)
     seeds *= radius / np.linalg.norm(seeds, axis=1, keepdims=True)
     return seeds
+
+
+def tile_edge_rows(cams, position, normal, ref, vis, k):
+    """Rows 9 and 10 of a batch (B > 10) over V > 32 views rewritten to
+    what a kernel that takes a row in tiles of 32 views must get right.
+    Row 9 sees only view V - 1, so its anchor lies in the last tile. Row
+    10 (reference view V - 1) sees every view but its reference, and its
+    patch is moved along x to where view 0, its anchor, does not hold all
+    four corners of its footprint while some of the last 32 views do: the
+    anchor is off-frustum, so every tile of the row scores -1. Returns new
+    (position, ref, vis) tensors."""
+    from densepoints_tpu_torch.ops.warp import patch_frames
+
+    V = vis.shape[1]
+    position, ref, vis = position.clone(), ref.clone(), vis.clone()
+    vis[9] = False
+    vis[9, V - 1] = True
+    ref[9] = 0
+    xs = torch.linspace(-10.0, 10.0, 2001, dtype=position.dtype,
+                        device=position.device)
+    cand = position[10].repeat(len(xs), 1)
+    cand[:, 0] = xs
+    refs = torch.full((len(xs),), V - 1, dtype=ref.dtype, device=ref.device)
+    sx, sy = patch_frames(cams, cand, normal[10].expand_as(cand), refs, k)
+    corners = cand[:, None, :] + torch.stack(
+        [-sx - sy, sx - sy, sx + sy, -sx + sy], dim=1)
+    inside = cams.points_inside(corners).all(-1)  # (V, candidates)
+    fits = ~inside[0] & inside[-32:].any(0)
+    if not bool(fits.any()):
+        raise ValueError("no x puts the patch outside view 0 and inside one "
+                         "of the last 32 views")
+    # The middle one of the positions that fit, away from both edges.
+    pick = fits.nonzero()[:, 0]
+    position[10] = cand[pick[len(pick) // 2]]
+    ref[10] = V - 1
+    vis[10] = True
+    vis[10, V - 1] = False
+    return position, ref, vis

@@ -25,6 +25,7 @@ from densepoints_tpu_torch.ops.warp import (
     patch_frames,
     patch_textures,
 )
+from densepoints_tpu_torch.scripts import _rigs
 from tests.synthetic import TexturedPlaneScene
 from tests.torch_port_util import (  # noqa: F401
     awkward_rig,
@@ -195,15 +196,14 @@ def test_kernel_wrapper_refuses_cpu_tensors(rng):
 
 
 @pytest.mark.parametrize("case", [
-    "page_2_31", "k_zero", "k_too_large", "too_many_views", "normal_batch",
-    "ref_batch",
+    "page_2_31", "k_zero", "k_too_large", "normal_batch", "ref_batch",
 ])
 def test_kernel_wrapper_validates_shapes(rng, case):
     """Shapes the kernel does not take raise `ValueError` before any launch
     (so also here, where there is no card): a view of 2^31 pixels or more
-    (offsets inside a view are 32-bit), a texture side outside the range,
-    more views than a block's shared memory holds, and position, normal
-    and ref of different batch sizes."""
+    (offsets inside a view are 32-bit), a texture side outside the range
+    (k = 60: its strided anchor texture does not fit a block's shared
+    memory), and position, normal and ref of different batch sizes."""
     cams, images = _setup(rng)
     V = cams.num_views
     pos, nrm, refs, vis = _patches(rng, 4, V)
@@ -216,10 +216,6 @@ def test_kernel_wrapper_validates_shapes(rng, case):
         args[-1] = 0
     elif case == "k_too_large":
         args[-1] = 60
-    elif case == "too_many_views":
-        many = 300
-        args[0] = torch.empty((many, 16, 16), device="meta")
-        args[1] = torch.empty((many, 3, 3), device="meta")
     elif case == "normal_batch":
         args[8] = args[8][:3]
         match = "one batch"
@@ -231,6 +227,28 @@ def test_kernel_wrapper_validates_shapes(rng, case):
         allview_ncc.allview_scores_cuda(*args)
     assert allview_ncc.KERNEL_LAUNCHES == launches
 
+
+
+# View counts the JAX package scores and the kernel must take: past the
+# 254 views whose set-up entries once filled a block's shared memory at
+# k = 11 and 16, and past 218 and 174 at k = 21 and 31 (strided variant).
+ANY_VIEW_COUNTS = [(255, 11), (312, 16), (1100, 11), (300, 21), (300, 31)]
+
+
+@pytest.mark.parametrize("V,k", ANY_VIEW_COUNTS)
+def test_kernel_takes_any_view_count(V, k):
+    """The wrapper takes a stack of any view count: on tensors with no
+    storage its only objection is the device. Nothing launches."""
+    meta = lambda *shape, **kw: torch.empty(shape, device="meta", **kw)  # noqa: E731
+    B = 4
+    args = [meta(V, 16, 16), meta(V, 3, 3), meta(V, 3, 4), meta(V, 3),
+            meta(V, 3), meta(V, dtype=torch.int32),
+            meta(V, dtype=torch.int32), meta(B, 3), meta(B, 3),
+            meta(B, dtype=torch.int64), meta(B, V, dtype=torch.bool), k]
+    launches = allview_ncc.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="needs CUDA tensors, got meta"):
+        allview_ncc.allview_scores_cuda(*args)
+    assert allview_ncc.KERNEL_LAUNCHES == launches
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [11, 16])
@@ -292,6 +310,36 @@ def test_kernel_awkward_shapes_on_card(rng, cuda_device, V, B, k):
     if B > 8:
         assert bool((s[2] == -1).all()) and bool((s[4:8] == -1).all())
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,B,k", [
+    (255, 64, 11), (312, 64, 11), (312, 64, 16), (1100, 16, 11),
+    (300, 64, 21), (300, 64, 31),
+])
+def test_kernel_many_views_on_card(rng, cuda_device, V, B, k):
+    """Kernel vs plain on the card past 254 views, the row taken in tiles
+    of 32: mixed visibility, a row with no visible view, rows off every
+    frustum, a row whose only visible view lies in the last tile (its
+    anchor there) and a row whose anchor is off-frustum while views of the
+    last tile hold its footprint (`_rigs.tile_edge_rows`). Scores within
+    1e-4, equal anchors, equal sentinel placement."""
+    images, cams, pos, nrm, ref, vis = _awkward_rig(rng, V, B, cuda_device)
+    pos, ref, vis = _rigs.tile_edge_rows(cams, pos, nrm, ref, vis, k)
+    args = (images, cams, pos, nrm, ref, vis, k)
+    launches = allview_ncc.KERNEL_LAUNCHES
+    s, a, ok = allview_ncc.allview_scores(*args)
+    ps, pa, pok = allview_ncc.allview_scores_plain(*args)
+    torch.cuda.synchronize()
+    assert allview_ncc.KERNEL_LAUNCHES == launches + 1
+    assert s.shape == (B, V)
+    assert torch.equal(a, pa) and torch.equal(ok, pok)
+    assert torch.equal(s == -1, ps == -1)
+    assert float((s - ps).abs().max()) <= XLA_ATOL
+    assert int(a[9]) == V - 1 and bool(ok[9]) and bool((s[9] == -1).all())
+    assert int(a[10]) == 0 and not bool(ok[10])
+    assert bool((s[10] == -1).all())
+    assert int((s[:, V - 32:] != -1).sum()) > 0
 
 @pytest.mark.cuda
 def test_entry_point_launches_only_its_kernel(rng, cuda_device):

@@ -25,6 +25,7 @@ from densepoints_tpu_torch.ops.warp import (
     patch_textures_indexed,
 )
 from densepoints_tpu_torch.pmvs.optimize import patch_ncc_scores
+from densepoints_tpu_torch.scripts import _rigs
 from tests.synthetic import TexturedPlaneScene
 from tests.torch_port_util import (  # noqa: F401
     awkward_rig,
@@ -257,15 +258,15 @@ def test_kernel_wrapper_refuses_cpu_tensors(rng):
 
 
 @pytest.mark.parametrize("case", [
-    "page_2_31", "k_zero", "k_too_large", "too_many_slots", "no_slots",
-    "normal_batch", "ref_batch",
+    "page_2_31", "k_zero", "k_too_large", "no_slots", "normal_batch",
+    "ref_batch",
 ])
 def test_kernel_wrapper_validates_shapes(rng, case):
     """Shapes the kernel does not take raise `ValueError` before any launch
     (so also here, where there is no card): a view of 2^31 pixels or more,
-    a texture side outside the range, more slots than a block's shared
-    memory holds, a slot table without slots, and position, normal and ref
-    of different batch sizes."""
+    a texture side outside the range (k = 60: its strided anchor texture
+    does not fit a block's shared memory), a slot table without slots, and
+    position, normal and ref of different batch sizes."""
     cams, images = _setup(rng)
     V = cams.num_views
     pos, nrm, refs, vis = _patches(rng, 4, V)
@@ -280,9 +281,6 @@ def test_kernel_wrapper_validates_shapes(rng, case):
         args[-1] = 0
     elif case == "k_too_large":
         args[-1] = 60
-    elif case == "too_many_slots":
-        args[10] = torch.zeros((4, 300), dtype=torch.int32)
-        args[11] = torch.ones((4, 300), dtype=torch.bool)
     elif case == "no_slots":
         args[10] = torch.zeros((4, 0), dtype=torch.int32)
         args[11] = torch.ones((4, 0), dtype=torch.bool)
@@ -298,6 +296,29 @@ def test_kernel_wrapper_validates_shapes(rng, case):
         warp_ncc.slot_scores_cuda(*args)
     assert warp_ncc.KERNEL_LAUNCHES == launches
 
+
+
+# Slot counts a table may have and the kernel must take: past the 254 slots
+# whose set-up entries once filled a block's shared memory at k = 11 and
+# 16, and past 218 and 174 at k = 21 and 31 (strided variant).
+ANY_SLOT_COUNTS = [(255, 11), (312, 16), (1100, 11), (300, 21), (300, 31)]
+
+
+@pytest.mark.parametrize("M,k", ANY_SLOT_COUNTS)
+def test_kernel_takes_any_view_count(M, k):
+    """The wrapper takes a slot table of any width: on tensors with no
+    storage its only objection is the device. Nothing launches."""
+    meta = lambda *shape, **kw: torch.empty(shape, device="meta", **kw)  # noqa: E731
+    V, B = 8, 4
+    args = [meta(V, 16, 16), meta(V, 3, 3), meta(V, 3, 4), meta(V, 3),
+            meta(V, 3), meta(V, dtype=torch.int32),
+            meta(V, dtype=torch.int32), meta(B, 3), meta(B, 3),
+            meta(B, dtype=torch.int64), meta(B, M, dtype=torch.int32),
+            meta(B, M, dtype=torch.bool), k]
+    launches = warp_ncc.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="needs CUDA tensors, got meta"):
+        warp_ncc.slot_scores_cuda(*args)
+    assert warp_ncc.KERNEL_LAUNCHES == launches
 
 def test_plain_version_takes_an_empty_batch(rng):
     cams, images = _setup(rng)
@@ -363,6 +384,37 @@ def test_kernel_awkward_shapes_on_card(rng, cuda_device, V, B, k, M):
     if B:
         assert float((s - want).abs().max()) <= XLA_ATOL
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [11, 21])
+def test_kernel_300_slots_on_card(rng, cuda_device, k):
+    """The slot kernel vs plain on the card with a table of 300 slots over
+    312 views, taken in tiles of 32: mixed visibility, a row whose slot 0
+    is off-frustum while slots of later tiles hold the footprint, and a row
+    whose only ok slots are slot 0 and slot 299 (the last tile). Scores
+    within 1e-4, equal sentinel placement."""
+    V, B, M = 312, 64, 300
+    im, tc, p, n, r, v = _awkward_rig(rng, V, B, cuda_device)
+    p, r, v = _rigs.tile_edge_rows(tc, p, n, r, v, k)
+    ids, ok = compact_visible(v, M)
+    ids, ok = ids.clone(), ok.clone()
+    ok[11] = False
+    ok[11, 0] = True
+    ok[11, M - 1] = True
+    ids[11, M - 1] = ids[11, 1]
+    launches = warp_ncc.KERNEL_LAUNCHES
+    s = warp_ncc.slot_scores(im, tc, p, n, r, ids, ok, k)
+    want = warp_ncc.slot_scores_plain(im, tc, p, n, r, ids, ok, k)
+    torch.cuda.synchronize()
+    assert warp_ncc.KERNEL_LAUNCHES == launches + 1
+    assert s.shape == (B, M)
+    assert torch.equal(s == -1, want == -1)
+    assert bool((s[~ok] == -1).all())
+    assert float((s - want).abs().max()) <= XLA_ATOL
+    assert bool((s[10] == -1).all())
+    assert float(s[11, M - 1]) != -1 and int((s[11] != -1).sum()) == 2
+    assert int((s[:, 256:] != -1).sum()) > 0
 
 @pytest.mark.cuda
 def test_view_ids_outside_the_stack_are_dead_slots_on_card(rng, cuda_device):
