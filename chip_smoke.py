@@ -13,6 +13,7 @@
     python3 chip_smoke.py --profile-dtu
     python3 chip_smoke.py --measure
     python3 chip_smoke.py --bench
+    python3 chip_smoke.py --cards
 
 Phases, each printing its own lines; any failure exits non-zero and prints
 no result line:
@@ -104,7 +105,10 @@ no result line:
      every rank: a, the CLI's `--distributed` on 1 rank (NCCL), its cloud
      the main path's (count, `vis` and positions within 1e-5); b, 2 ranks
      on the one card (gloo), the ranks' clouds bitwise equal and equal to
-     a's; c, `densify_clustered` on shared seeds on 1 and 2 ranks holding
+     a's; a_launch, the CLI's `--distributed` with no --coordinator, one
+     rank per card the process sees (one here), and a_visible, job a in a
+     process that sees only CUDA_VISIBLE_DEVICES=0: each NCCL and a's cloud
+     bitwise; c, `densify_clustered` on shared seeds on 1 and 2 ranks holding
      every view (count exact, positions within 5e-3), and the CLI's
      `--partition clustered --halo-threshold 0.5` on 2 ranks, each holding
      fewer image bytes than the stack; d, `run_ba_sharded` on 2 ranks on
@@ -112,7 +116,9 @@ no result line:
      solver's spread over 5 orders of its sums (at least 1e-3 px) of the
      single rank's. Each `[parallel]` line gives the rank's backend, K1
      launches, patches, radial error, stage seconds and the traffic of
-     its collectives. `--parallel` runs phases 10 and 12 alone;
+     its collectives, and each CLI job's rank table (rank, host, card, the
+     card's UUID's first 8 characters). `--parallel` runs phases 10 and 12
+     alone;
   13. the three end-to-end programs of `densepoints_tpu_torch.scripts`
      through their `run` in four runs (`[dtu]`), each with every counter
      at 0 just before: a, `dtu_scale_run` at `DTU_r05.json`'s
@@ -208,6 +214,11 @@ the L2 cache together, so each call reads device memory) and the bound.
 and awkward shapes of at most 254 views, and `--compare-scores A B` holds
 two such files equal with `torch.equal` (no card needed): run the first
 in two checkouts to compare their kernels' outputs bitwise.
+`--cards` runs the sphere over every card of the host (a host of several
+cards: the jobs of phase 12 need no more than one): a 1-rank reference,
+one `--distributed` CLI process driving a rank per card, and one process
+per card each seeing only its own; each must pick NCCL on distinct cards
+and give the reference's cloud within 1e-5.
 `--profile-main` runs the CLI on the sphere scene under `torch.profiler`
 and prints one JSON line of its device ops, launches and stage seconds.
 `--kernel-resources` prints the registers, stack and spills `ptxas`
@@ -221,6 +232,8 @@ with another `ops/_build.py`, it says whether two builds made the same code.
 from __future__ import annotations
 
 import json
+import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1688,11 +1701,12 @@ BA_RMSE_ATOL = 1e-3  # pixels, sharded vs single-rank BA
 BA_ORDERS = 5  # single-rank BA in the observations' order and 4 shuffles
 
 
-def _run_ranks(label, world, spec, tmp):
+def _run_ranks(label, world, spec, tmp, env=None):
     """The `world` ranks of one job, each this script with --parallel-rank
     (`scripts._jobs.run_ranks`: every rank is killed if one fails or the
-    job runs past PARALLEL_CHILD_S seconds). Returns each rank's record
-    (its last `[parallel-rank]` JSON line)."""
+    job runs past PARALLEL_CHILD_S seconds), with `env` added to their
+    environment. Returns each rank's record (its last `[parallel-rank]`
+    JSON line)."""
     from densepoints_tpu_torch.scripts import _jobs
 
     def rank_args(rank, port):
@@ -1702,7 +1716,7 @@ def _run_ranks(label, world, spec, tmp):
 
     try:
         _jobs.run_ranks("chip_smoke", world, rank_args, tmp,
-                        PARALLEL_CHILD_S, name=label)
+                        PARALLEL_CHILD_S, env=env, name=label)
     except RuntimeError as exc:
         raise SmokeFailure(f"[parallel] {label}: {exc}") from exc
     records = []
@@ -1719,12 +1733,16 @@ def _run_ranks(label, world, spec, tmp):
 def parallel_rank(spec):
     """The `--parallel-rank SPEC` mode: one rank of a phase 12 job. With
     "flags", `cli.main` with those flags joined to the job (counters at 0
-    before); with "ba", the view-sharded seeds and `run_ba_sharded` of the
-    scene. Writes its cloud to SPEC["out"] and prints one JSON line."""
+    before), or with "launch", with those flags alone (the CLI forms the
+    job, `parallel.launch`); with "ba", the view-sharded seeds and
+    `run_ba_sharded` of the scene. Writes its cloud to SPEC["out"] and
+    prints one JSON line."""
     import numpy as np
     import torch
 
     spec = json.loads(spec)
+    if spec.get("visible"):  # this rank sees only its own card
+        os.environ["CUDA_VISIBLE_DEVICES"] = str(spec["rank"])
     check(spec["device"] != "cuda" or torch.cuda.is_available(),
           "a rank found no CUDA card")
     job = ["--coordinator", f"127.0.0.1:{spec['port']}", "--num-processes",
@@ -1754,7 +1772,8 @@ def parallel_rank(spec):
         t0 = time.perf_counter()
         try:
             rc = (_seeded_clustered_rank(spec, clustered) if "halo" in spec
-                  else cli.main(spec["flags"] + job))
+                  else cli.main(spec["flags"]
+                                + ([] if spec.get("launch") else job)))
         finally:
             multihost.densify_multihost, clustered.densify_clustered = saved
         wall = time.perf_counter() - t0
@@ -1772,6 +1791,8 @@ def parallel_rank(spec):
             "radial": _radial_error(pts), "wall_s": round(wall, 3),
             "stage_s": {k: round(v, 3) for k, v in res.metrics.times.items()},
             "counters": res.metrics.counters,
+            "cards_seen": torch.cuda.device_count(),
+            "table": [list(row) for row in mesh.table],
         }
     record.update(rank=spec["rank"], world=spec["world"])
     print("[parallel-rank] " + json.dumps(record), flush=True)
@@ -1885,7 +1906,9 @@ def phase_parallel(device, main_patches, ba_turned_rmse):
     """Phase 12: the multi-process paths on the sphere, each rank a child
     process with every counter at 0 before its run. a: `--distributed`, 1
     rank (NCCL), against the main path's cloud; b: 2 ranks on the one card
-    (gloo), both ranks' clouds bitwise equal and equal to a's; c: clustered
+    (gloo), both ranks' clouds bitwise equal and equal to a's; a_launch
+    (the CLI forms the job itself) and a_visible (CUDA_VISIBLE_DEVICES=0):
+    NCCL and a's cloud bitwise; c: clustered
     partitioning, 2 ranks against 1 with every view held, and 2 ranks with
     a halo of 9 of the 12 views (fewer image bytes than the stack); d:
     `run_ba_sharded` on 2 ranks on the turned calibration, against the
@@ -1907,17 +1930,23 @@ def phase_parallel(device, main_patches, ba_turned_rmse):
         settings.write_text(json.dumps(SPHERE_SETTINGS))
         base = ["-i", str(scene), "-s", str(settings), "--device", device]
 
-        def job(label, world, flags, halo=None):
-            """A CLI run with `flags`, or with `halo`, `densify_clustered`
-            on the seeds of the single front end (no PLY then)."""
+        def job(label, world, flags, halo=None, launch=False, env=None):
+            """A CLI run with `flags` (`launch`: the CLI forms the job), or
+            with `halo`, `densify_clustered` on the seeds of the single
+            front end (no PLY then)."""
             ply = tmp / f"{label}.ply"
             spec = {"flags": base + flags + ["-o", str(ply)],
-                    "device": device}
+                    "device": device, "launch": launch}
             if halo is not None:
                 spec.update(halo=halo, scene=str(scene),
                             settings=SPHERE_SETTINGS)
-            recs = _run_ranks(label, world, spec, tmp)
+            recs = _run_ranks(label, world, spec, tmp, env=env)
             clouds = []
+            if recs[0].get("table"):
+                print(f"[parallel] {label} rank table: " + "; ".join(
+                    f"rank {r} host {h} card {c} uuid {u}"
+                    for r, h, c, u in recs[0]["table"])
+                    + f"; backend {recs[0]['backend']}", flush=True)
             for rec in recs:
                 _parallel_line(label, rec)
                 launches[f"{label}_rank{rec['rank']}"] = rec["launches"]
@@ -1962,6 +1991,24 @@ def phase_parallel(device, main_patches, ba_turned_rmse):
         worst = _same_cloud("b vs a", b, a, PARALLEL_ATOL)
         print(f"[parallel] b vs a: {len(b['position'])} patches each, vis "
               f"equal, positions within {worst:.3e}", flush=True)
+        # The launcher: `--distributed` with no --coordinator drives every
+        # card the process sees (one here); and a rank that sees only its
+        # own card (CUDA_VISIBLE_DEVICES, as per-task launchers set it).
+        for label, env in (("a_launch", None),
+                           ("a_visible", {"CUDA_VISIBLE_DEVICES": "0"})):
+            recs, cloud = job(label, 1, ["--distributed"],
+                              launch=label == "a_launch", env=env)
+            check(recs[0]["backend"] == want, f"[parallel] {label}: backend "
+                  f"{recs[0]['backend']}, expected {want}")
+            check(env is None or recs[0]["cards_seen"] == 1,
+                  f"[parallel] {label}: the rank sees "
+                  f"{recs[0]['cards_seen']} cards")
+            for key in ("position", "normal", "vis"):
+                check(np.array_equal(cloud[key], a[key]),
+                      f"[parallel] {label}: {key} differs from a's")
+            print(f"[parallel] {label} vs a: {len(cloud['position'])} "
+                  f"patches each, bitwise equal, backend "
+                  f"{recs[0]['backend']}", flush=True)
 
         # Shared seeds: each rank's own seeds would take priorities offset
         # by its rank, and the cloud would depend on the number of ranks.
@@ -2027,6 +2074,100 @@ def phase_parallel(device, main_patches, ba_turned_rmse):
               f"[parallel] d: single-rank RMSE {single:.6f} px, phase 11 "
               f"{ba_turned_rmse:.6f} px")
     return launches
+
+
+# `--cards`: a line of the rank table `initialize_multihost` logs on rank 0.
+_TABLE_LINE = re.compile(r"multihost: rank (\d+)/(\d+) host (\S+) card (\S+) "
+                         r"uuid (\S+) backend (\w+)")
+
+
+def cards_only(device):
+    """The `--cards` mode: the sphere over every card of the host. a: the
+    CLI's `--distributed` on 1 hand-started rank that sees card 0 alone
+    (the reference); launch:
+    `python -m densepoints_tpu_torch.cli --distributed` in one process,
+    one rank per card (`parallel.launch`), its rank table read from its
+    log; visible: one hand-started process per card, each seeing only its
+    own (CUDA_VISIBLE_DEVICES), K1 launched and no plain call in each.
+    Each multi-card job must pick NCCL on distinct cards and give a's
+    cloud (count, positions within PARALLEL_ATOL)."""
+    import numpy as np
+    import torch
+
+    from densepoints_tpu_torch.io.ply import read_ply
+
+    cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "scene").mkdir()
+        scene = write_sphere_scene(tmp / "scene")
+        settings = tmp / "settings.json"
+        settings.write_text(json.dumps(SPHERE_SETTINGS))
+        base = ["-i", str(scene), "-s", str(settings), "--device", device,
+                "--distributed"]
+        # The reference sees one card: a process that sees several drives
+        # a rank on each (parallel.launch).
+        a_rec = _run_ranks("a", 1, {"flags": base + ["-o", str(tmp / "a.ply")],
+                                    "device": device}, tmp,
+                           env={"CUDA_VISIBLE_DEVICES": "0"})[0]
+        _parallel_line("a", a_rec)
+        with np.load(tmp / "a.0.npz") as f:
+            a = {k: f[k] for k in f.files}
+
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "densepoints_tpu_torch.cli", *base, "-o",
+             str(tmp / "launch.ply")], cwd=ROOT, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            timeout=PARALLEL_CHILD_S)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"[cards] launch: exit "
+              f"{proc.returncode}:\n{proc.stdout[-3000:]}")
+        rows = _TABLE_LINE.findall(proc.stdout)
+        for line in proc.stdout.splitlines():
+            if any(k in line for k in ("launch:", "multihost: rank",
+                                       "densify done")):
+                print(f"[cards] launch: {line.split(' INFO ')[-1]}",
+                      flush=True)
+        check(len(rows) == cards and {int(r[1]) for r in rows} == {cards},
+              f"[cards] launch: {len(rows)} table rows, {cards} cards")
+        check({r[5] for r in rows} == {"nccl"},
+              f"[cards] launch: backends {sorted({r[5] for r in rows})}")
+        check(len({r[3] for r in rows}) == cards
+              and len({r[4] for r in rows}) == cards,
+              f"[cards] launch: cards {[r[3] for r in rows]}")
+        got = read_ply(tmp / "launch.ply")["positions"]
+        check(len(got) == len(a["position"]), f"[cards] launch: "
+              f"{len(got)} patches, a {len(a['position'])}")
+        worst = float(np.abs(got - a["position"]).max()) if len(got) else 0.0
+        check(worst <= PARALLEL_ATOL, f"[cards] launch: positions differ "
+              f"from a's by {worst:.3e}")
+        print(f"[cards] launch: {cards} ranks in one process, backend nccl, "
+              f"{len(got)} patches, positions within {worst:.3e} of a's, "
+              f"command wall {wall:.3f} s", flush=True)
+
+        recs = _run_ranks("visible", cards, {
+            "flags": base + ["-o", str(tmp / "visible.ply")],
+            "device": device, "visible": True}, tmp)
+        print("[cards] visible rank table: " + "; ".join(
+            f"rank {r} host {h} card {c} uuid {u}"
+            for r, h, c, u in recs[0]["table"]), flush=True)
+        check(len({u for *_, u in recs[0]["table"]}) == cards,
+              "[cards] visible: the ranks' cards are not distinct")
+        for rec in recs:
+            _parallel_line("visible", rec)
+            check(rec["backend"] == "nccl" and rec["cards_seen"] == 1,
+                  f"[cards] visible: rank {rec['rank']} backend "
+                  f"{rec['backend']}, sees {rec['cards_seen']} cards")
+            check(rec["launches"] > 0 and rec["plain"] == 0,
+                  f"[cards] visible: rank {rec['rank']} K1 launches "
+                  f"{rec['launches']}, plain calls {rec['plain']}")
+            with np.load(tmp / f"visible.{rec['rank']}.npz") as f:
+                cloud = {k: f[k] for k in f.files}
+            worst = _same_cloud(f"visible rank {rec['rank']} vs a", cloud, a,
+                                PARALLEL_ATOL)
+        print(f"[cards] visible: {cards} processes of one card each, NCCL, "
+              f"clouds within {worst:.3e} of a's", flush=True)
 
 
 # Phase 13: the three end-to-end programs of the port, a, b and c at the
@@ -2913,6 +3054,7 @@ def main() -> int:
              "--kernel-resources": kernel_resources,
              "--parallel": parallel_only, "--dtu": dtu_only,
              "--measure": measure_only, "--bench": bench_only,
+             "--cards": cards_only,
              "--profile-dtu": profile_dtu}
     if len(sys.argv) == 4 and sys.argv[1] == "--compare-scores":
         try:

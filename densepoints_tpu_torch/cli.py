@@ -8,8 +8,11 @@
         [--coordinator HOST:PORT --num-processes N --process-id I] \\
         [--partition replicated|clustered [--halo-threshold T]]
 
-A multi-process job starts one process per rank with the same flags but
-`--process-id`; rank 0 alone writes the PLY and the mesh.
+`--distributed` runs one rank per card the process sees (on the CPU,
+`parallel.num_devices` of them): with more than one, the process starts
+a child per rank (`parallel.launch`). A job of several processes starts
+each with the same flags but `--process-id`; rank 0 alone writes the PLY
+and the mesh.
 """
 from __future__ import annotations
 
@@ -69,9 +72,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--distributed",
         action="store_true",
-        help="run densify_multihost over the job's ranks (one rank without "
-        "--coordinator); with --coordinator/--num-processes/--process-id, "
-        "joins a torch.distributed job first",
+        help="run densify_multihost over the job's ranks, one per card "
+        "this process sees (parallel.num_devices of them on the CPU); with "
+        "--coordinator/--num-processes/--process-id, as part of a job of "
+        "several processes",
     )
     p.add_argument("--coordinator", help="rank 0's host:port of the job")
     p.add_argument(
@@ -121,6 +125,7 @@ def resolve_device(device: str | None, platform: str | None) -> str:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device, args.platform)
     settings = {}
@@ -144,18 +149,40 @@ def main(argv=None) -> int:
         config = config.replace(
             runtime=dataclasses.replace(config.runtime, **runtime_overrides))
 
+    from densepoints_tpu_torch.parallel import launch
     from densepoints_tpu_torch.parallel import mesh as pmesh
 
-    if args.coordinator or args.num_processes:
+    # Clustered partitioning stays one cluster per process, as in JAX.
+    coordinator, nproc = args.coordinator, args.num_processes
+    if args.partition == "replicated" and (args.distributed or coordinator):
+        width = launch.ranks_per_process(device, nproc,
+                                         config.parallel.num_devices)
+        if width > 1:
+            return launch.launch_ranks(argv, width, coordinator, nproc,
+                                       args.process_id)
+        if coordinator is None and (nproc or 1) == 1:
+            coordinator, nproc = launch.loopback_address(), 1
+    if coordinator or nproc:
         pmesh.initialize_multihost(
-            coordinator_address=args.coordinator,
-            num_processes=args.num_processes,
+            coordinator_address=coordinator,
+            num_processes=nproc,
             process_id=args.process_id,
             device=device,
+            ranks_per_process=launch.child_width(),
         )
-    mesh = pmesh.global_mesh(device)
+    try:
+        return _run(args, config, device, pmesh.global_mesh(device))
+    except BaseException:
+        pmesh.abort_multihost()
+        raise
+    finally:
+        pmesh.shutdown_multihost()
+
+
+def _run(args, config, device, mesh) -> int:
+    """Densify the scene on this rank of `mesh` and, on rank 0, write."""
     if mesh.backend != "none":
-        device = mesh.device  # a rank's own: cuda:(rank % device_count)
+        device = mesh.device  # a rank's own card (parallel.mesh)
 
     from densepoints_tpu_torch.io.scene import load_scene
     from densepoints_tpu_torch.pmvs import pipeline
@@ -177,7 +204,6 @@ def main(argv=None) -> int:
     if mesh.rank == 0:
         # Every rank holds the same cloud; one writer per output path.
         _write_outputs(args, config, result, device)
-    pmesh.shutdown_multihost()
     return 0
 
 

@@ -13,12 +13,15 @@ group, one rank per device, each rank running the same program (SPMD):
     sharded computation onto `all_gather`, `broadcast_one_to_all` onto
     `broadcast` from rank 0.
 
-The backend rule (`_choose_backend`, logged once by `initialize_multihost`):
-NCCL when every rank has a GPU of its own on its host (the ranks of a host
-map to distinct `rank % torch.cuda.device_count()`), gloo otherwise (CPU
-tensors, or more ranks than GPUs on a host). gloo reduces and gathers
-host tensors, so the gloo collectives copy a device tensor to the host and
-back; `MeshTraffic` counts those bytes beside the collective bytes. A rank
+The card and backend rule (`plan_ranks`, on the rank table that
+`initialize_multihost` gathers before any group is made, logged once):
+a rank's card is `cuda:(local_index % cards)`, its local index its
+position among the ranks of its host in rank order, and the backend is
+NCCL when the job runs on cuda and the ranks' cards (by UUID) are
+pairwise distinct, gloo otherwise (CPU tensors, or ranks sharing a card,
+as two ranks on one card do). gloo reduces and gathers host tensors, so
+the gloo collectives copy a device tensor to the host and back;
+`MeshTraffic` counts those bytes beside the collective bytes. A rank
 never moves its compute to the CPU, and a failure to initialise raises.
 
 A mesh made without a process group (`make_mesh()` before any
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import json
 import time
 
 import torch
@@ -42,7 +46,9 @@ __all__ = [
     "make_mesh",
     "global_mesh",
     "initialize_multihost",
+    "plan_ranks",
     "shutdown_multihost",
+    "abort_multihost",
     "shard_patches",
     "replicate",
     "pad_to_multiple",
@@ -73,13 +79,15 @@ class Mesh:
     """rank / world_size of this process in the job; `device` is its
     device; `backend` is "nccl", "gloo" or "none" (world size 1, no process
     group); `group` is the process group of the tensor collectives (None:
-    the default group)."""
+    the default group); `table` the job's rank table, a (rank, host, card,
+    the card's UUID's first 8 characters) row per rank."""
 
     rank: int
     world_size: int
     device: torch.device
     backend: str
     group: object = None
+    table: tuple = dataclasses.field(default=(), compare=False)
     traffic: MeshTraffic = dataclasses.field(
         default_factory=MeshTraffic, compare=False
     )
@@ -88,20 +96,57 @@ class Mesh:
 _GLOBAL: Mesh | None = None  # the job's mesh, set by initialize_multihost
 
 
-def _choose_backend(ranks_hosts, device_counts, device_type: str) -> str:
-    """NCCL when the ranks of every host map to distinct GPUs (`rank %
-    device_count`), gloo otherwise."""
+def plan_ranks(table, device_type: str):
+    """(card index per rank, backend) of a job from its rank table, one
+    record per rank in rank order: {"host", "uuids" (the UUIDs of the
+    cards its process sees), "per_process" (the ranks its process
+    drives)}. A rank's card is its local index (its position among its
+    host's ranks) modulo its process's cards; the backend is NCCL when the
+    job runs on cuda and the chosen cards' UUIDs are pairwise distinct,
+    gloo otherwise. Cards are None on the CPU. Raises `ValueError` when
+    the processes drive unequal numbers of ranks, or a cuda rank sees no
+    card."""
+    widths = sorted({rec["per_process"] for rec in table})
+    if len(widths) > 1:
+        raise ValueError(
+            f"the job's processes drive {widths} ranks each: every process "
+            "of a job must see the same number of cards")
     if device_type != "cuda":
-        return "gloo"
-    seen = {}
-    for rank, (host, count) in enumerate(zip(ranks_hosts, device_counts)):
-        if count < 1:
-            return "gloo"
-        taken = seen.setdefault(host, set())
-        if rank % count in taken:
-            return "gloo"
-        taken.add(rank % count)
-    return "nccl"
+        return [None] * len(table), "gloo"
+    cards, taken, local = [], set(), {}
+    for rank, rec in enumerate(table):
+        if not rec["uuids"]:
+            raise ValueError(f"rank {rank} on {rec['host']} sees no card")
+        index = local.get(rec["host"], 0)
+        local[rec["host"]] = index + 1
+        cards.append(index % len(rec["uuids"]))
+        taken.add(rec["uuids"][cards[-1]])
+    return cards, "nccl" if len(taken) == len(table) else "gloo"
+
+
+def _gather_table(store, record: dict, rank: int, world: int, width: int):
+    """Every rank's record through the job's store, before any process
+    group: keyed by (process, local rank), so processes that disagree on
+    `width` (and so on rank numbers) still all see the whole table and
+    raise in `plan_ranks` instead of meeting in a group of clashing
+    ranks. Returns the records in rank order."""
+    if world % width:
+        raise ValueError(f"{world} ranks do not split into processes of "
+                         f"{width}")
+    process, index = divmod(rank, width)
+    store.set(f"rank_table/{process}/{index}", json.dumps(record))
+    table, keys = [], []
+    for p in range(world // width):
+        first = json.loads(store.get(f"rank_table/{p}/0"))
+        table.append(first)
+        table += [json.loads(store.get(f"rank_table/{p}/{i}"))
+                  for i in range(1, first["per_process"])]
+        keys += [f"rank_table/read/{p}/{i}"
+                 for i in range(first["per_process"])]
+    store.set(f"rank_table/read/{process}/{index}", "1")
+    if rank == 0:
+        store.wait(keys)  # rank 0 holds the store until every rank has read
+    return table
 
 
 def initialize_multihost(
@@ -109,14 +154,18 @@ def initialize_multihost(
     num_processes: int | None = None,
     process_id: int | None = None,
     device: str | None = None,
+    ranks_per_process: int = 1,
 ):
     """Join (or form) the job at `coordinator_address` ("host:port", rank 0
     listens there). Returns (rank, world size).
 
-    The default process group is gloo (it also carries the host-side
-    exchanges); when `_choose_backend` picks NCCL, an NCCL group over the
-    same ranks carries the tensor collectives. Each rank runs on
-    `cuda:(rank % device_count)` unless `device` is "cpu". Every
+    Every rank first puts its record in the rank table (host, the UUIDs
+    of the cards its process sees, `ranks_per_process`: the ranks its
+    process drives, the L of `parallel.launch`); `plan_ranks` then gives
+    each rank its card and the job its backend, and the rank sets its
+    card before any group is made. The default process group is gloo (it
+    also carries the host-side exchanges); when the plan is NCCL, an NCCL
+    group over the same ranks carries the tensor collectives. Every
     collective of the job waits at most `TIMEOUT_S` seconds."""
     global _GLOBAL
     import socket
@@ -139,32 +188,40 @@ def initialize_multihost(
                 "initialize_multihost: no CUDA device; pass device='cpu' "
                 "to run the job on the CPU"
             )
-        count = torch.cuda.device_count()
-        dev = torch.device("cuda", rank % count)
-        torch.cuda.set_device(dev)
+        uuids = [str(torch.cuda.get_device_properties(i).uuid)
+                 for i in range(torch.cuda.device_count())]
     elif kind == "cpu":
-        count, dev = 0, torch.device("cpu")
+        uuids = []
     else:
         raise ValueError(f"device {device!r}: the port runs on cuda or cpu")
     timeout = datetime.timedelta(seconds=TIMEOUT_S)
-    dist.init_process_group(
-        "gloo", init_method=f"tcp://{coordinator_address}",
-        world_size=world, rank=rank, timeout=timeout,
-    )
-    hosts = [None] * world
-    dist.all_gather_object(hosts, (socket.gethostname(), count))
-    backend = _choose_backend([h for h, _ in hosts], [c for _, c in hosts],
-                              kind)
+    host, port = coordinator_address.rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), is_master=rank == 0,
+                          timeout=timeout, wait_for_workers=False)
+    record = {"host": socket.gethostname(), "uuids": uuids,
+              "per_process": int(ranks_per_process)}
+    table = _gather_table(store, record, rank, world, int(ranks_per_process))
+    cards, backend = plan_ranks(table, kind)
+    dev = torch.device("cpu")
+    if kind == "cuda":
+        dev = torch.device("cuda", cards[rank])
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=store, world_size=world,
+                            rank=rank, timeout=timeout)
     group = None
     if backend == "nccl":
         group = dist.new_group(backend="nccl", timeout=timeout)
+    rows = tuple(
+        (r, rec["host"], cards[r],
+         rec["uuids"][cards[r]][:8] if cards[r] is not None else "-")
+        for r, rec in enumerate(table))
     _GLOBAL = Mesh(rank=rank, world_size=world, device=dev, backend=backend,
-                   group=group)
-    log.info(
-        "multihost: rank %d/%d on %s, backend %s (nccl when the ranks of "
-        "every host map to distinct GPUs, rank %% device_count; gloo "
-        "otherwise)", rank, world, dev, backend,
-    )
+                   group=group, table=rows)
+    if rank == 0:
+        for r, h, card, uuid in rows:
+            log.info("multihost: rank %d/%d host %s card %s uuid %s "
+                     "backend %s", r, world, h,
+                     "-" if card is None else card, uuid, backend)
     return rank, world
 
 
@@ -181,6 +238,19 @@ def shutdown_multihost():
     _GLOBAL = None
 
 
+def abort_multihost():
+    """Leave the job at once, without the barrier: a rank that failed
+    must not wait for ranks that wait for it. Nothing without one."""
+    global _GLOBAL
+    import torch.distributed as dist
+
+    if _GLOBAL is None:
+        return
+    _GLOBAL = None
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def global_mesh(device=None) -> Mesh:
     """The job's mesh after `initialize_multihost`; otherwise a mesh of
     world size 1 on `device` (default cuda)."""
@@ -192,12 +262,22 @@ def global_mesh(device=None) -> Mesh:
 
 def make_mesh(num_devices: int | None = None, device=None) -> Mesh:
     """The mesh over the job's ranks (`global_mesh`). `num_devices`, when
-    given, must equal its world size: one rank drives one device."""
+    given, must equal its world size.
+
+    Unlike JAX's `make_mesh(n)`, which takes n of the process's devices,
+    this in-process API is one rank per process: it starts no process
+    under a caller's loaded scene. A job over several cards is started by
+    the CLI (`--distributed`, which runs one rank per card the process
+    sees, `parallel.launch`) or by one process per rank joining with
+    `initialize_multihost`."""
     mesh = global_mesh(device)
     if num_devices and num_devices != mesh.world_size:
         raise ValueError(
-            f"num_devices={num_devices}, but the job has {mesh.world_size} "
-            "rank(s): start one process per device (initialize_multihost)"
+            f"num_devices={num_devices}, but this process's job has "
+            f"{mesh.world_size} rank(s), and the in-process API drives one "
+            "rank per process: run `python -m densepoints_tpu_torch.cli "
+            "--distributed` to drive every card a process sees, or start "
+            "one process per rank (initialize_multihost)"
         )
     return mesh
 

@@ -6,22 +6,16 @@ limit, fails the job after every process of it has been killed."""
 from __future__ import annotations
 
 import os
-import socket
-import subprocess
 import sys
 import time
 from pathlib import Path
 
+from densepoints_tpu_torch.parallel.launch import (
+    LOOPBACK_ENV,
+    free_port,
+    run_processes,
+)
 from densepoints_tpu_torch.scripts._scene_runs import REPO
-
-# The ranks meet on the loopback interface.
-LOOPBACK_ENV = {"GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": "lo"}
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def rank_log(work: Path, name: str, world: int, rank: int) -> Path:
@@ -34,51 +28,28 @@ def run_ranks(module: str, world: int, rank_args, work: Path,
               name: str = "") -> float:
     """Run `world` processes of `python -m module *rank_args(rank, port)`
     in `work`, each rank's output in `rank_log(work, name, world, rank)`
-    (`name` defaults to the module's last part), and wait for all of them;
-    returns the job's wall seconds. Raises `RuntimeError` with the failing
-    rank's log when a rank exits non-zero or the job outlives `timeout`
-    seconds; no process is left running."""
+    (`name` defaults to the module's last part), and wait for all of them
+    (`parallel.launch.run_processes`); returns the job's wall seconds.
+    Raises `RuntimeError` with the failing rank's log when a rank exits
+    non-zero or the job outlives `timeout` seconds; no process is left
+    running."""
     port = free_port()
     penv = dict(os.environ, **LOOPBACK_ENV, **(env or {}))
     penv["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
     logs = [rank_log(work, name or module.rsplit(".", 1)[-1], world, rank)
             for rank in range(world)]
-    procs = []
+    commands = [[sys.executable, "-m", module,
+                 *map(str, rank_args(rank, port))] for rank in range(world)]
     t0 = time.perf_counter()
     try:
-        for rank in range(world):
-            with open(logs[rank], "w") as log:
-                procs.append(subprocess.Popen(
-                    [sys.executable, "-m", module,
-                     *map(str, rank_args(rank, port))],
-                    cwd=str(work), env=penv, stdout=log,
-                    stderr=subprocess.STDOUT))
-        while any(p.poll() is None for p in procs):
-            failed = [r for r, p in enumerate(procs)
-                      if p.poll() not in (None, 0)]
-            if failed:
-                raise RuntimeError(_failure(module, world, failed[0],
-                                            procs, logs))
-            if time.perf_counter() - t0 > timeout:
-                raise RuntimeError(
-                    f"{module}: a job of {world} rank(s) outlived its "
-                    f"{timeout:g} s")
-            time.sleep(0.05)
-        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-        if failed:
-            raise RuntimeError(_failure(module, world, failed[0], procs,
-                                        logs))
-        return time.perf_counter() - t0
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-        for p in procs:
-            p.wait()
-
-
-def _failure(module, world, rank, procs, logs) -> str:
-    tail = Path(logs[rank]).read_text()[-4000:]
-    return (f"{module}: rank {rank}/{world} failed "
-            f"({procs[rank].returncode}):\n{tail}")
+        failed, codes = run_processes(commands, env=penv, cwd=str(work),
+                                      logs=logs, timeout=timeout)
+    except TimeoutError:
+        raise RuntimeError(f"{module}: a job of {world} rank(s) outlived "
+                           f"its {timeout:g} s") from None
+    if failed is not None:
+        tail = Path(logs[failed]).read_text()[-4000:]
+        raise RuntimeError(f"{module}: rank {failed}/{world} failed "
+                           f"({codes[failed]}):\n{tail}")
+    return time.perf_counter() - t0
