@@ -117,8 +117,17 @@ no result line:
      single rank's. Each `[parallel]` line gives the rank's backend, K1
      launches, patches, radial error, stage seconds and the traffic of
      its collectives, and each CLI job's rank table (rank, host, card, the
-     card's UUID's first 8 characters). `--parallel` runs phases 10 and 12
-     alone;
+     card's UUID's first 8 characters). Between b and c, the in-process
+     API from this process (every counter at 0 before each call):
+     a_inproc, `densify_multihost(mesh=make_mesh(4))` (one rank on one
+     card, so in place) with a's cloud bitwise and a's K1 launches, and
+     `densify_distributed` with `parallel.num_devices` 0 and 4, each its
+     own `make_mesh(1)` run's cloud bitwise; a_local1 and b_local2, the
+     runner of `parallel.local_job` on `densify_multihost` with 1 rank
+     (NCCL) and 2 ranks sharing the card (gloo), each a's cloud bitwise,
+     every rank's card, UUID, K1 launches (a's) and plain calls (none)
+     printed, no process group left in this process, and the call's wall
+     beside job a's or b's. `--parallel` runs phases 10 and 12 alone;
   13. the three end-to-end programs of `densepoints_tpu_torch.scripts`
      through their `run` in four runs (`[dtu]`), each with every counter
      at 0 just before: a, `dtu_scale_run` at `DTU_r05.json`'s
@@ -218,7 +227,13 @@ in two checkouts to compare their kernels' outputs bitwise.
 cards: the jobs of phase 12 need no more than one): a 1-rank reference,
 one `--distributed` CLI process driving a rank per card, and one process
 per card each seeing only its own; each must pick NCCL on distinct cards
-and give the reference's cloud within 1e-5.
+and give the reference's cloud within 1e-5. Then the in-process API from
+this process with `make_mesh(4)` (min(4, cards) ranks): `densify_multihost`
+(NCCL on cards 0-3 with distinct UUIDs, the reference's cloud bitwise,
+its K1 launches on every rank, no plain call), `densify_distributed`
+(its 1-rank run's `vis`, positions and normals within 1e-5), and on the
+turned calibration `generate_seed_points` and `run_ba_sharded` (the
+RMSE within phase 12 d's tolerance of the single-rank solver's).
 `--profile-main` runs the CLI on the sphere scene under `torch.profiler`
 and prints one JSON line of its device ops, launches and stage seconds.
 `--kernel-resources` prints the registers, stack and spills `ptxas`
@@ -1470,10 +1485,12 @@ def _seed_rmse(scene_path, settings, device):
     return _ba_rmse(scene_path, settings, device, iterations=0)
 
 
-def _ba_rmse(scene_path, settings, device, iterations=None):
+def _ba_rmse(scene_path, settings, device, iterations=None, mesh=None):
     """The pipeline's bundle adjustment of the scene's seed tracks on one
     rank (with `iterations` LM iterations in place of the settings'), as a
-    CLI run makes it; returns the RMSE in pixels."""
+    CLI run makes it; returns the RMSE in pixels. With `mesh`, the seed
+    front end and the solve run over its ranks (`generate_seed_points` and
+    `run_ba_sharded` with `mesh`)."""
     import dataclasses
 
     import torch
@@ -1487,11 +1504,12 @@ def _ba_rmse(scene_path, settings, device, iterations=None):
     scene = load_scene(scene_path, device=device)
     images = torch.as_tensor(scene.images, dtype=torch.float32, device=device)
     points, obs, mask = generate_seed_points(images, scene.cameras,
-                                             config.matching)
+                                             config.matching, mesh=mesh)
     ba = config.ba
     if iterations is not None:
         ba = dataclasses.replace(ba, max_outer_iterations=iterations)
-    return _bundle_adjust(scene.cameras, points, obs, mask, ba)[2]
+    return _bundle_adjust(scene.cameras, points, obs, mask, ba,
+                          mesh=mesh)[2]
 
 
 def _with_settings(**sections):
@@ -1908,7 +1926,8 @@ def phase_parallel(device, main_patches, ba_turned_rmse):
     rank (NCCL), against the main path's cloud; b: 2 ranks on the one card
     (gloo), both ranks' clouds bitwise equal and equal to a's; a_launch
     (the CLI forms the job itself) and a_visible (CUDA_VISIBLE_DEVICES=0):
-    NCCL and a's cloud bitwise; c: clustered
+    NCCL and a's cloud bitwise; the in-process API (`phase_inproc`);
+    c: clustered
     partitioning, 2 ranks against 1 with every view held, and 2 ranks with
     a halo of 9 of the 12 views (fewer image bytes than the stack); d:
     `run_ba_sharded` on 2 ranks on the turned calibration, against the
@@ -1921,7 +1940,7 @@ def phase_parallel(device, main_patches, ba_turned_rmse):
     main = {"position": main_patches.position.cpu().numpy(),
             "normal": main_patches.normal.cpu().numpy(),
             "vis": main_patches.vis.cpu().numpy()}
-    launches = {}
+    launches, walls = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
         (tmp / "scene").mkdir()
@@ -1940,7 +1959,9 @@ def phase_parallel(device, main_patches, ba_turned_rmse):
             if halo is not None:
                 spec.update(halo=halo, scene=str(scene),
                             settings=SPHERE_SETTINGS)
+            t0 = time.perf_counter()
             recs = _run_ranks(label, world, spec, tmp, env=env)
+            walls[label] = time.perf_counter() - t0
             clouds = []
             if recs[0].get("table"):
                 print(f"[parallel] {label} rank table: " + "; ".join(
@@ -2010,6 +2031,8 @@ def phase_parallel(device, main_patches, ba_turned_rmse):
                   f"patches each, bitwise equal, backend "
                   f"{recs[0]['backend']}", flush=True)
 
+        launches.update(phase_inproc(device, scene, a, a_recs[0], walls))
+
         # Shared seeds: each rank's own seeds would take priorities offset
         # by its rank, and the cloud would depend on the number of ranks.
         _, c1 = job("c_one", 1, [], halo=-1.0)
@@ -2073,6 +2096,141 @@ def phase_parallel(device, main_patches, ba_turned_rmse):
         check(abs(single - ba_turned_rmse) <= BA_RMSE_ATOL,
               f"[parallel] d: single-rank RMSE {single:.6f} px, phase 11 "
               f"{ba_turned_rmse:.6f} px")
+    return launches
+
+
+def _bitwise(label, got, want):
+    """`got`'s position, normal and vis equal `want`'s."""
+    import numpy as np
+
+    for key in ("position", "normal", "vis"):
+        check(got[key].shape == want[key].shape
+              and np.array_equal(got[key], want[key]),
+              f"{label}: {key} differs ({len(got['position'])} patches "
+              f"against {len(want['position'])})")
+
+
+def _inproc(run, device):
+    """`run()` -> `DensifyResult` in this process, every counter at 0 just
+    before; returns (cloud, result, wall seconds, K1 launches, plain calls
+    of this process)."""
+    import torch
+
+    _reset_counters()
+    t0 = time.perf_counter()
+    res = run()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = _read_counters()
+    cloud = {"position": res.patches.position.cpu().numpy(),
+             "normal": res.patches.normal.cpu().numpy(),
+             "vis": res.patches.vis.cpu().numpy()}
+    return cloud, res, wall, launches["allview_ncc"], sum(plain.values())
+
+
+def _job_ranks(tag, res, want_launches, want_nccl):
+    """The per-rank counters of a call that ran as a job of its own ranks
+    (`parallel.local_job`): prints each rank's card, UUID, K1 launches and
+    plain calls, and fails unless every rank launched K1 `want_launches`
+    times with no plain call and the job's backend is as wanted. Returns
+    the rows (rank, card, uuid8, launches)."""
+    c = res.metrics.counters
+    check("job_ranks" in c, f"{tag}: the call ran no job of ranks")
+    rows = []
+    for rank in range(int(c["job_ranks"])):
+        card, uuid8 = int(c[f"rank{rank}_card"]), int(c[f"rank{rank}_uuid8"])
+        launches = int(c[f"rank{rank}_allview_ncc_launches"])
+        plain = int(c[f"rank{rank}_plain_calls"])
+        print(f"{tag} rank {rank}/{int(c['job_ranks'])} card {card} uuid "
+              f"{uuid8:08x} backend {'nccl' if c['job_nccl'] else 'gloo'} "
+              f"K1_launches={launches} plain_calls={plain}", flush=True)
+        check(launches == want_launches and plain == 0,
+              f"{tag}: rank {rank} K1 launches {launches} (want "
+              f"{want_launches}), plain calls {plain}")
+        rows.append((rank, card, uuid8, launches))
+    check(bool(c["job_nccl"]) == want_nccl,
+          f"{tag}: job_nccl {c['job_nccl']}, expected {int(want_nccl)}")
+    return rows
+
+
+def phase_inproc(device, scene_path, a, a_rec, walls):
+    """Phase 12's in-process lines on the one card. a_inproc:
+    `densify_multihost(mesh=make_mesh(4))` from this process (L = 1 here,
+    so in place) gives job a's cloud bitwise, and `densify_distributed`
+    with `parallel.num_devices` 0 and 4 its own `make_mesh(1)` run's;
+    a_local1 / b_local2: `parallel.local_job.run` on `densify_multihost`
+    with 1 rank (NCCL) and 2 ranks sharing the card (gloo), each job a's
+    cloud bitwise, every rank with job a's K1 launches and no plain call,
+    and no process group left in this process. Returns the K1 launches."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from densepoints_tpu_torch.config import ParallelConfig, load_config
+    from densepoints_tpu_torch.io import load_scene
+    from densepoints_tpu_torch.parallel import local_job
+    from densepoints_tpu_torch.parallel import mesh as pmesh
+    from densepoints_tpu_torch.parallel.multihost import densify_multihost
+    from densepoints_tpu_torch.parallel.pipeline import densify_distributed
+
+    config = load_config(SPHERE_SETTINGS)
+    scene = load_scene(scene_path, device=device)
+    launches = {}
+    mesh = pmesh.make_mesh(4, device=device)
+    check(mesh.world_size == 1 and mesh.started,
+          f"[parallel] a_inproc: make_mesh(4) on one card spans "
+          f"{mesh.world_size} rank(s), backend {mesh.backend}")
+    cloud, _, wall, n, plain = _inproc(
+        lambda: densify_multihost(scene, config, mesh=mesh), device)
+    launches["a_inproc"] = n
+    check(n == a_rec["launches"] and plain == 0, f"[parallel] a_inproc: "
+          f"K1 launches {n} (job a {a_rec['launches']}), plain {plain}")
+    _bitwise("[parallel] a_inproc vs a", cloud, a)
+    print(f"[parallel] a_inproc densify_multihost(mesh=make_mesh(4)): 1 "
+          f"rank in place, {len(cloud['position'])} patches, a's cloud "
+          f"bitwise, K1_launches={n} plain_calls={plain} wall={wall:.3f}s",
+          flush=True)
+    runs = {}
+    for label, n_dev in (("make_mesh(1)", None), ("num_devices 0", 0),
+                         ("num_devices 4", 4)):
+        cfg = config if n_dev is None else dataclasses.replace(
+            config, parallel=ParallelConfig(num_devices=n_dev))
+        dmesh = pmesh.make_mesh(1, device=device) if n_dev is None else None
+        runs[label], _, wall, n, plain = _inproc(
+            lambda: densify_distributed(scene, cfg, mesh=dmesh,
+                                        device=device), device)
+        launches[f"a_inproc_distributed_{label}"] = n
+        check(n > 0 and plain == 0, f"[parallel] a_inproc "
+              f"densify_distributed {label}: K1 launches {n}, plain {plain}")
+        _bitwise(f"[parallel] a_inproc densify_distributed {label}",
+                 runs[label], runs["make_mesh(1)"])
+        print(f"[parallel] a_inproc densify_distributed {label}: "
+              f"{len(runs[label]['position'])} patches, the make_mesh(1) "
+              f"run's bitwise, K1_launches={n} plain_calls={plain} "
+              f"wall={wall:.3f}s", flush=True)
+    for label, world, cli_job in (("a_local1", 1, "a"), ("b_local2", 2, "b")):
+        mesh = pmesh.Mesh(rank=0, world_size=world,
+                          device=torch.device(device, 0),
+                          backend=pmesh.LOCAL)
+        cloud, res, wall, n, plain = _inproc(
+            lambda: local_job.run("densify_multihost", mesh, scene=scene,
+                                  config=config), device)
+        check(n == 0 and plain == 0, f"[parallel] {label}: this process "
+              f"launched K1 {n} times, made {plain} plain calls")
+        for rank, *_, ranks_launches in _job_ranks(
+                f"[parallel] {label}", res, a_rec["launches"],
+                want_nccl=world == 1):
+            launches[f"{label}_rank{rank}"] = ranks_launches
+        _bitwise(f"[parallel] {label} vs a", cloud, a)
+        check(not dist.is_initialized() and pmesh.global_mesh().world_size
+              == 1, f"[parallel] {label}: this process holds a process "
+              "group after the call")
+        print(f"[parallel] {label}: {world} rank(s) started for one call "
+              f"from this process, a's cloud bitwise, no process group "
+              f"left; call wall {wall:.3f} s, job {cli_job} (CLI ranks "
+              f"started by this script) {walls[cli_job]:.3f} s", flush=True)
     return launches
 
 
@@ -2168,6 +2326,84 @@ def cards_only(device):
                                 PARALLEL_ATOL)
         print(f"[cards] visible: {cards} processes of one card each, NCCL, "
               f"clouds within {worst:.3e} of a's", flush=True)
+        cards_inproc(device, scene, a, a_rec, wall)
+
+
+def cards_inproc(device, scene_path, a, a_rec, launch_wall):
+    """`--cards`, the in-process API over every card: `make_mesh(4)` from
+    this process is a mesh of min(4, cards) ranks not yet started, which
+    `densify_multihost` runs as a job of NCCL ranks on distinct cards
+    (a's cloud bitwise, a's K1 launches on every rank, no plain call),
+    `densify_distributed` as well (its `make_mesh(1)` run's cloud within
+    PARALLEL_ATOL), and on the turned calibration `generate_seed_points`
+    and `run_ba_sharded` (through the pipeline's bundle adjustment), the
+    RMSE within phase 12 d's tolerance of the single-rank solver's."""
+    import torch
+    import torch.distributed as dist
+
+    from densepoints_tpu_torch.config import load_config
+    from densepoints_tpu_torch.io import load_scene
+    from densepoints_tpu_torch.parallel import mesh as pmesh
+    from densepoints_tpu_torch.parallel.multihost import densify_multihost
+    from densepoints_tpu_torch.parallel.pipeline import densify_distributed
+
+    cards = torch.cuda.device_count()
+    world = min(4, cards)
+    mesh = pmesh.make_mesh(4, device=device)
+    check(world > 1 and mesh.world_size == world and not mesh.started,
+          f"[cards] inproc: make_mesh(4) on {cards} cards spans "
+          f"{mesh.world_size} rank(s), backend {mesh.backend}")
+    config = load_config(SPHERE_SETTINGS)
+    scene = load_scene(scene_path, device=device)
+    cloud, res, wall, n, plain = _inproc(
+        lambda: densify_multihost(scene, config, mesh=mesh), device)
+    check(n == 0 and plain == 0, f"[cards] inproc: this process launched "
+          f"K1 {n} times, made {plain} plain calls")
+    rows = _job_ranks("[cards] inproc densify_multihost", res,
+                      a_rec["launches"], want_nccl=True)
+    check([card for _, card, _, _ in rows] == list(range(world))
+          and len({uuid for _, _, uuid, _ in rows}) == world,
+          f"[cards] inproc: cards and UUIDs {rows}")
+    _bitwise("[cards] inproc densify_multihost vs a", cloud, a)
+    check(not dist.is_initialized(), "[cards] inproc: this process holds a "
+          "process group after the call")
+    print(f"[cards] inproc densify_multihost(mesh=make_mesh(4)): {world} "
+          f"NCCL ranks on cards 0-{world - 1}, {world} distinct UUIDs, "
+          f"{len(cloud['position'])} patches, a's cloud bitwise; call wall "
+          f"{wall:.3f} s, the CLI launcher's command {launch_wall:.3f} s",
+          flush=True)
+
+    one, _, _, _, _ = _inproc(lambda: densify_distributed(
+        scene, config, mesh=pmesh.make_mesh(1, device=device)), device)
+    got, res, wall, _, _ = _inproc(lambda: densify_distributed(
+        scene, config, mesh=mesh), device)
+    _job_ranks("[cards] inproc densify_distributed", res,
+               int(res.metrics.counters["rank0_allview_ncc_launches"]),
+               want_nccl=True)
+    worst = _same_cloud("[cards] inproc densify_distributed vs 1 rank", got,
+                        one, PARALLEL_ATOL)
+    print(f"[cards] inproc densify_distributed(mesh=make_mesh(4)): "
+          f"{len(got['position'])} patches, vis equal, positions within "
+          f"{worst:.3e} of its 1-rank run's; call wall {wall:.3f} s",
+          flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        turned = write_sphere_scene(Path(tmp), turn=0.002)
+        settings = _with_settings(ba={"enable": True})
+        orders = _ba_rmse_orders(turned, settings, device, BA_ORDERS)
+        t0 = time.perf_counter()
+        rmse = _ba_rmse(turned, settings, device, mesh=mesh)
+        wall = time.perf_counter() - t0
+    single, lo, hi = orders[0], min(orders), max(orders)
+    tol = max(BA_RMSE_ATOL, 2.0 * (hi - lo))
+    print(f"[cards] inproc generate_seed_points + run_ba_sharded "
+          f"(mesh=make_mesh(4)): RMSE {rmse:.6f} px in {wall:.3f} s "
+          f"(two jobs of {world} ranks); single rank {single:.6f} px, "
+          f"{lo:.6f} - {hi:.6f} over {BA_ORDERS} orders of its sums; "
+          f"|difference| {abs(rmse - single):.6f} (limit {tol:.6f})",
+          flush=True)
+    check(abs(rmse - single) <= tol, f"[cards] inproc: sharded RMSE "
+          f"{rmse:.6f} px, single rank {single:.6f} px (limit {tol:.6f})")
 
 
 # Phase 13: the three end-to-end programs of the port, a, b and c at the

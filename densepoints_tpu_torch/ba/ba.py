@@ -263,12 +263,24 @@ def run_ba_sharded(
     `problem` is replicated. The observations are padded to a multiple of
     the world size with masked slots (zero Huber weight, zero
     contribution), so the result equals `run_ba`'s up to the order of the
-    float sums. Returns `run_ba`'s tuple, the same on every rank."""
+    float sums. Returns `run_ba`'s tuple, the same on every rank. Given a
+    mesh of L > 1 ranks not yet started (`make_mesh` outside a job), the
+    call runs as a job of L ranks started for it and returns rank 0's
+    tuple (`parallel/local_job.py`)."""
     from densepoints_tpu_torch.parallel.mesh import (
         all_reduce,
         pad_to_multiple,
         shard_patches,
     )
+
+    if not mesh.started:
+        from densepoints_tpu_torch.parallel import local_job
+
+        return local_job.run(
+            "run_ba_sharded", mesh, problem=problem,
+            max_outer_iterations=max_outer_iterations,
+            cg_iterations=cg_iterations, damping=damping,
+            robust_delta=robust_delta)
 
     M = problem.obs_xy.shape[0]
     pad = pad_to_multiple(M, mesh.world_size) - M

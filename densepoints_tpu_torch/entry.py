@@ -11,7 +11,7 @@ Stands for the root `__graft_entry__.py` of the JAX package:
     the plane z = 0, uniform noise images, 16 plane patches, drawn from
     `default_rng(0)` in the root file's order). `fn` is a plain callable
     on tensors; in a process without a process group the step's mesh has
-    one rank (`parallel.mesh.make_mesh`).
+    one rank (`parallel.mesh.global_mesh`).
   * `dryrun_multichip(n, device)`: a job of n ranks of this module
     (`scripts._jobs.run_ranks`, gloo on loopback), each running the
     sharded step once on `_tiny_problem` with max(16, 2n) patches: the

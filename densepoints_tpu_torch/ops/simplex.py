@@ -44,7 +44,12 @@ def nelder_mead(
     Returns (x_best (B, D), f_best (B,), iterations_used (B,)).
     """
     if mesh is not None:
-        from densepoints_tpu_torch.parallel.mesh import all_true
+        from densepoints_tpu_torch.parallel.mesh import (
+            all_true,
+            require_started,
+        )
+
+        require_started(mesh, "nelder_mead")
     B, D = x0.shape
     offsets = torch.cat(
         [x0.new_zeros((1, D)), torch.diag(init_step.to(x0))], dim=0

@@ -49,7 +49,12 @@ from densepoints_tpu_torch.parallel.clusters import (
     cluster_halos,
     cluster_views,
 )
-from densepoints_tpu_torch.parallel.mesh import Mesh, all_gather, make_mesh
+from densepoints_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather,
+    global_mesh,
+    require_started,
+)
 from densepoints_tpu_torch.pmvs.expand import make_expansion_candidates
 from densepoints_tpu_torch.pmvs.filter import run_filters
 from densepoints_tpu_torch.pmvs.optimize import (
@@ -211,9 +216,11 @@ def densify_clustered(
     only its cluster's images + halo. `image_loader(view_ids) -> (n, H, W)
     float32` lets a caller never build the whole stack; without it the
     subset is sliced from `scene.images`. Returns the SAME full cloud on
-    every rank. Without `mesh`, the job's mesh (`make_mesh`)."""
+    every rank. Without `mesh`, this process's rank (`global_mesh`): one
+    cluster per process, as in JAX."""
     if mesh is None:
-        mesh = make_mesh()
+        mesh = global_mesh()
+    require_started(mesh, "densify_clustered")
     pid, nproc, dev = mesh.rank, mesh.world_size, mesh.device
     cameras = scene.cameras.to(dev)
     V = cameras.num_views

@@ -19,6 +19,10 @@ collectives.
 
 Claims are decided by global ids, never by arrival order, so the N-rank
 result equals the 1-rank result.
+
+These building blocks are the SPMD body: they run inside a rank, and
+refuse a mesh whose ranks are not started (`mesh.require_started`), which
+only the job-level entry points run a call on.
 """
 from __future__ import annotations
 
@@ -32,8 +36,9 @@ from densepoints_tpu_torch.parallel.mesh import (
     Mesh,
     all_gather,
     all_reduce,
-    make_mesh,
+    global_mesh,
     pad_to_multiple,
+    require_started,
     shard_patches,
 )
 from densepoints_tpu_torch.pmvs.optimize import (
@@ -68,6 +73,7 @@ __all__ = [
 def shard_state(state: PatchState, mesh: Mesh) -> PatchState:
     """This rank's row block of `state`, whose capacity is first padded
     with zeroed dead patches to a multiple of the world size."""
+    require_started(mesh, "shard_state")
     state = zero_pad(state, pad_to_multiple(state.capacity, mesh.world_size))
     return state.map(lambda a: shard_patches(mesh, a))
 
@@ -126,9 +132,11 @@ def distributed_refine_step(
     """`refine_step_impl` with the three stages fused per slice: each rank
     refines its row block of every `max_refine_batch` slice of the whole
     (replicated) `state`, and one `all_gather` per slice makes the result
-    replicated. Without `mesh`, the job's mesh (`make_mesh`)."""
+    replicated. Without `mesh`, this process's rank (`global_mesh`: the
+    job's mesh, world size 1 outside a job)."""
     if mesh is None:
-        mesh = make_mesh(device=state.position.device)
+        mesh = global_mesh(device=state.position.device)
+    require_started(mesh, "distributed_refine_step")
     return _sliced(refine_step_once, images, cameras, state, texture_size,
                    optimize_config, mesh)
 
@@ -146,6 +154,7 @@ def distributed_insert(
     `state` (P patches) and `global_ids` (P,) are replicated; each rank
     claims for its row block. Returns (accepted (P,) bool, new grids), both
     replicated."""
+    require_started(mesh, "distributed_insert")
     if grids.slots_per_cell != 1:
         raise ValueError(
             "distributed insertion supports max_patches_per_cell=1"
@@ -211,6 +220,7 @@ def pad_views(grids: OccupancyGrids, n: int) -> OccupancyGrids:
 
 def shard_views(mesh: Mesh, grids: OccupancyGrids) -> OccupancyGrids:
     """This rank's slice of views of `pad_views`-padded grids."""
+    require_started(mesh, "shard_views")
     return OccupancyGrids(cells=shard_patches(mesh, grids.cells),
                           cols=shard_patches(mesh, grids.cols),
                           rows=shard_patches(mesh, grids.rows))
@@ -235,6 +245,7 @@ def viewsharded_insert(
     `all_reduce(SUM)` of the win counts behind the >= `min_grids` vote.
     Returns (accepted (P,) bool replicated, this rank's new grid slice).
     """
+    require_started(mesh, "viewsharded_insert")
     v_loc, Hg, Wg = grids.cells.shape[:3]
     K = grids.slots_per_cell
     if cell_ids.shape[1] != v_loc * mesh.world_size:

@@ -18,11 +18,14 @@ run of the CLI bridges the two: the process drives L ranks
 
 Each child learns its L from `CHILD_ENV`; the rank table of
 `initialize_multihost` holds every process of a job to one L. The
-in-process API (`densify_distributed`, `make_mesh`) stays one rank per
-process: it cannot start processes under a caller's loaded scene.
+in-process API has its own route to L ranks: outside a job `make_mesh(n)`
+gives an unstarted mesh of L = `ranks_per_process(device, None, n)` ranks,
+and the job-level entry points run their call on it as a job of L
+children of `parallel.local_job`.
 
 `run_processes` is the one copy of the start / wait / kill logic of a job
-of processes, which `scripts._jobs.run_ranks` also runs on.
+of processes, which `parallel.local_job` and `scripts._jobs.run_ranks`
+also run on.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from densepoints_tpu_torch.utils import log
 __all__ = [
     "CHILD_ENV",
     "LOOPBACK_ENV",
+    "child_env",
     "child_width",
     "free_port",
     "launch_ranks",
@@ -67,6 +71,19 @@ def free_port() -> int:
 def loopback_address() -> str:
     """A coordinator address on a free loopback port."""
     return f"127.0.0.1:{free_port()}"
+
+
+def child_env(extra: dict | None = None, loopback: bool = False) -> dict:
+    """The environment of a job's child: this process's with `extra`, the
+    loopback interface for gloo and NCCL unless set (`loopback`: a job of
+    this host alone), and the checkout's root first on PYTHONPATH."""
+    env = dict(os.environ, **(extra or {}))
+    if loopback:
+        for key, value in LOOPBACK_ENV.items():
+            env.setdefault(key, value)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(_PACKAGE_ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    return env
 
 
 def child_width() -> int:
@@ -163,16 +180,12 @@ def launch_ranks(argv, width: int, coordinator: str | None,
     given); returns the first non-zero exit code of a child, else 0."""
     nproc = num_processes or 1
     pid = process_id or 0
-    env = dict(os.environ, **{CHILD_ENV: str(width)})
+    env = child_env({CHILD_ENV: str(width)}, loopback=coordinator is None)
     if coordinator is None:
         if nproc != 1:
             raise ValueError(
                 f"a job of {nproc} processes needs --coordinator HOST:PORT")
         coordinator = loopback_address()
-        for key, value in LOOPBACK_ENV.items():
-            env.setdefault(key, value)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(_PACKAGE_ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
     world = nproc * width
     log.info("launch: process %d of %d drives ranks %d-%d of %d, "
              "coordinator %s", pid, nproc, pid * width,

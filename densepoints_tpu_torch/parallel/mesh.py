@@ -24,9 +24,15 @@ the gloo collectives copy a device tensor to the host and back;
 `MeshTraffic` counts those bytes beside the collective bytes. A rank
 never moves its compute to the CPU, and a failure to initialise raises.
 
-A mesh made without a process group (`make_mesh()` before any
-`initialize_multihost`) has world size 1, and every collective is the
-identity.
+Outside a job (before any `initialize_multihost`), `global_mesh()` has
+world size 1 and every collective is the identity. `make_mesh(n)` there
+follows JAX's `make_mesh(n)` over the process's devices: it takes L =
+min(n, cards) of the cards (every card when n is None or 0), or L =
+max(1, n) ranks on the CPU (`launch.ranks_per_process`). With L = 1 it is
+that world-size-1 mesh; with L > 1 it is an unstarted mesh of L ranks
+(backend "local"), which the job-level entry points (`ENTRY_POINTS`) run
+their call on as a job of L child processes (`parallel/local_job.py`).
+The building blocks run inside a rank and refuse it (`require_started`).
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ import time
 
 import torch
 
+from densepoints_tpu_torch.parallel.launch import ranks_per_process
 from densepoints_tpu_torch.utils import log
 
 __all__ = [
@@ -47,6 +54,7 @@ __all__ = [
     "global_mesh",
     "initialize_multihost",
     "plan_ranks",
+    "require_started",
     "shutdown_multihost",
     "abort_multihost",
     "shard_patches",
@@ -59,8 +67,20 @@ __all__ = [
 ]
 
 PATCH_AXIS = "patch"
-# Every collective of a job waits at most this long for the other ranks.
+# Every collective of a job waits at most this long for the other ranks,
+# and a job started for one call (`parallel/local_job.py`) as long in all.
 TIMEOUT_S = 600.0
+# The backend of an unstarted mesh: L ranks that a job-level entry point
+# starts for its call.
+LOCAL = "local"
+# The entry points that run a call on an unstarted mesh as a job, and the
+# module of each.
+ENTRY_POINTS = {
+    "densify_distributed": "densepoints_tpu_torch.parallel.pipeline",
+    "densify_multihost": "densepoints_tpu_torch.parallel.multihost",
+    "run_ba_sharded": "densepoints_tpu_torch.ba.ba",
+    "generate_seed_points": "densepoints_tpu_torch.pmvs.seed",
+}
 
 
 @dataclasses.dataclass
@@ -77,10 +97,12 @@ class MeshTraffic:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """rank / world_size of this process in the job; `device` is its
-    device; `backend` is "nccl", "gloo" or "none" (world size 1, no process
-    group); `group` is the process group of the tensor collectives (None:
-    the default group); `table` the job's rank table, a (rank, host, card,
-    the card's UUID's first 8 characters) row per rank."""
+    device; `backend` is "nccl", "gloo", "none" (world size 1, no process
+    group) or "local" (`world_size` ranks not yet started, `device` the
+    first card or the CPU: `make_mesh` outside a job); `group` is the
+    process group of the tensor collectives (None: the default group);
+    `table` the job's rank table, a (rank, host, card, the card's UUID's
+    first 8 characters) row per rank."""
 
     rank: int
     world_size: int
@@ -91,6 +113,11 @@ class Mesh:
     traffic: MeshTraffic = dataclasses.field(
         default_factory=MeshTraffic, compare=False
     )
+
+    @property
+    def started(self) -> bool:
+        """False for a mesh of ranks not yet started (backend "local")."""
+        return self.backend != LOCAL
 
 
 _GLOBAL: Mesh | None = None  # the job's mesh, set by initialize_multihost
@@ -252,8 +279,11 @@ def abort_multihost():
 
 
 def global_mesh(device=None) -> Mesh:
-    """The job's mesh after `initialize_multihost`; otherwise a mesh of
-    world size 1 on `device` (default cuda)."""
+    """This process's rank: the job's mesh after `initialize_multihost`;
+    otherwise a mesh of world size 1 on `device` (default cuda). Unlike
+    JAX's `global_mesh()`, which spans every device, it starts no process:
+    the CLI and the workers read it as their own rank. `make_mesh()` spans
+    every card."""
     if _GLOBAL is not None:
         return _GLOBAL
     return Mesh(rank=0, world_size=1,
@@ -261,25 +291,45 @@ def global_mesh(device=None) -> Mesh:
 
 
 def make_mesh(num_devices: int | None = None, device=None) -> Mesh:
-    """The mesh over the job's ranks (`global_mesh`). `num_devices`, when
-    given, must equal its world size.
+    """JAX's `make_mesh(n)`: a mesh over n of the process's devices.
 
-    Unlike JAX's `make_mesh(n)`, which takes n of the process's devices,
-    this in-process API is one rank per process: it starts no process
-    under a caller's loaded scene. A job over several cards is started by
-    the CLI (`--distributed`, which runs one rank per card the process
-    sees, `parallel.launch`) or by one process per rank joining with
-    `initialize_multihost`."""
-    mesh = global_mesh(device)
-    if num_devices and num_devices != mesh.world_size:
+    Inside a job (after `initialize_multihost`) it is the job's mesh, and
+    `num_devices`, when given, must equal its world size. Outside a job it
+    spans L ranks: on cuda L = min(n, cards), every card when n is None or
+    0; on the CPU L = max(1, n) (`launch.ranks_per_process`). With L = 1 it
+    is `global_mesh(device)`, and everything runs in this process. With L
+    > 1 it is an unstarted mesh (backend "local") on the first card or the
+    CPU: `densify_distributed`, `densify_multihost`, `run_ba_sharded` and
+    `generate_seed_points` given it run their call as a job of L ranks
+    started for that call (`parallel/local_job.py`) and return the result
+    here."""
+    if _GLOBAL is not None:
+        if num_devices and num_devices != _GLOBAL.world_size:
+            raise ValueError(
+                f"num_devices={num_devices}, but this process is a rank of "
+                f"a job of {_GLOBAL.world_size}: inside a job the mesh is "
+                "the job's"
+            )
+        return _GLOBAL
+    dev = torch.device(device or "cuda")
+    width = ranks_per_process(dev.type, None, num_devices or 0)
+    if width == 1:
+        return global_mesh(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+    return Mesh(rank=0, world_size=width, device=dev, backend=LOCAL)
+
+
+def require_started(mesh: Mesh | None, what: str):
+    """Raise `ValueError` when `what`, which runs inside a rank, is given
+    an unstarted mesh (`make_mesh` outside a job)."""
+    if mesh is not None and not mesh.started:
         raise ValueError(
-            f"num_devices={num_devices}, but this process's job has "
-            f"{mesh.world_size} rank(s), and the in-process API drives one "
-            "rank per process: run `python -m densepoints_tpu_torch.cli "
-            "--distributed` to drive every card a process sees, or start "
-            "one process per rank (initialize_multihost)"
+            f"{what} runs inside a rank of a job, but this mesh of "
+            f"{mesh.world_size} ranks is not started: pass it to one of "
+            f"{', '.join(ENTRY_POINTS)}, which run the call as a job of its "
+            "ranks"
         )
-    return mesh
 
 
 def pad_to_multiple(n: int, multiple: int) -> int:
@@ -289,6 +339,7 @@ def pad_to_multiple(n: int, multiple: int) -> int:
 def _row_block(mesh: Mesh, n: int) -> slice:
     """This rank's contiguous rows of a dim 0 of length `n` (a multiple of
     the world size)."""
+    require_started(mesh, "shard_patches")
     if n % mesh.world_size:
         raise ValueError(
             f"{n} rows do not split into {mesh.world_size} equal blocks"

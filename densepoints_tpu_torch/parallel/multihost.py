@@ -27,6 +27,11 @@ and compactions follow replicated vectors, so the N-rank cloud equals the
 1-rank cloud. Images are replicated on every rank: the warp + NCC objective
 may touch any view's pixels for any patch in every Nelder-Mead iteration.
 `parallel/clustered.py` is the driver that splits the images.
+
+Without a mesh, `densify_multihost` runs on this process's rank
+(`global_mesh`: world size 1 outside a job); `mesh=make_mesh()` outside a
+job spans every card, as a job of a rank per card started for the call
+(`parallel/local_job.py`).
 """
 from __future__ import annotations
 
@@ -243,16 +248,23 @@ def densify_multihost(
     mesh: Mesh | None = None,
     seed_points: np.ndarray | None = None,
 ) -> DensifyResult:
-    """End-to-end densification over the ranks of `mesh` (default: the
-    job's, `global_mesh`).
+    """End-to-end densification over the ranks of `mesh` (default: this
+    process's rank, `global_mesh`).
 
     Every rank calls this with the SAME scene and config and receives the
     SAME result. `seed_points` skips the seed front end (for callers that
     bring their own sparse reconstruction). The seed stage is the
     single-host `densify`'s: create patches -> NCC filter -> compact ->
-    optimize."""
+    optimize. Given a mesh of L > 1 ranks not yet started (`make_mesh`
+    outside a job), the call runs as a job of L ranks started for it and
+    returns rank 0's result (`parallel/local_job.py`)."""
     if mesh is None:
         mesh = global_mesh()
+    if not mesh.started:
+        from densepoints_tpu_torch.parallel import local_job
+
+        return local_job.run("densify_multihost", mesh, scene=scene,
+                             config=config, seed_points=seed_points)
     dev = mesh.device
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
         else None

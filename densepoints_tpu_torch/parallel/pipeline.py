@@ -9,6 +9,11 @@ the same deterministic path on every rank.
 
 `seed_refine_patches_per_sec` in the metrics is the refine rate of the
 seed stage, the ratio a 1-rank and an N-rank run are compared by.
+
+Outside a job, `densify_distributed(scene, config)` spans
+`make_mesh(config.parallel.num_devices or None)` as in JAX: every card
+when `num_devices` is 0. A mesh of L > 1 ranks made there runs the call
+as a job of L ranks started for it (`parallel/local_job.py`).
 """
 from __future__ import annotations
 
@@ -48,12 +53,22 @@ def densify_distributed(
     scene: Scene,
     config: PipelineConfig = PipelineConfig(),
     mesh: Mesh | None = None,
+    device=None,
 ) -> DensifyResult:
     """Every rank calls this with the same scene and config and receives
-    the same result. Without `mesh`, the job's mesh (`make_mesh`, world
-    size 1 outside a job)."""
+    the same result. Without `mesh`, `make_mesh(config.parallel.num_devices
+    or None, device)` (`device` default cuda): the job's mesh inside a job;
+    outside one, that many cards (every card for 0) or CPU ranks. Given a
+    mesh of L > 1 ranks not yet started (`make_mesh` outside a job), the
+    call runs as a job of L ranks started for it and returns rank 0's
+    result (`parallel/local_job.py`)."""
     if mesh is None:
-        mesh = make_mesh(config.parallel.num_devices or None)
+        mesh = make_mesh(config.parallel.num_devices or None, device=device)
+    if not mesh.started:
+        from densepoints_tpu_torch.parallel import local_job
+
+        return local_job.run("densify_distributed", mesh, scene=scene,
+                             config=config)
     metrics = StageMetrics(sync=_sync(mesh))
     dev = mesh.device
     cameras = scene.cameras.to(dev)

@@ -149,8 +149,16 @@ def generate_seed_points(
     the keypoint closest to the line and "epipolar_all" the
     `config.epipolar_topk` closest, consumed by one-hop track assembly.
     With `mesh`, the per-view detection and description split over its
-    ranks (`_viewsharded_features`); everything after is unchanged.
+    ranks (`_viewsharded_features`); everything after is unchanged. Given
+    a mesh of L > 1 ranks not yet started (`make_mesh` outside a job), the
+    call runs as a job of L ranks started for it and returns rank 0's
+    result (`parallel/local_job.py`).
     Returns (points, obs, mask); obs/mask are the track observations."""
+    if mesh is not None and not mesh.started:
+        from densepoints_tpu_torch.parallel import local_job
+
+        return local_job.run("generate_seed_points", mesh, images=images,
+                             cameras=cameras, config=config, pairs=pairs)
     matcher = config.matcher
     if matcher not in ("hamming_knn", "hamming_absolute", "epipolar",
                        "epipolar_all"):

@@ -9,7 +9,7 @@ Stands for `scripts/scaling_overhead.py` of the JAX package, with its
 workload: `TexturedPlaneScene` (`default_rng(0)`, 9 views of 640 x 480),
 50,000 seeds on a grid over +-0.75 of the plane, 3 expansion rounds of 60
 Nelder-Mead iterations, `parallel.multihost.densify_multihost` with
-`seed_points` on a mesh of one rank (`parallel.mesh.make_mesh`). The
+`seed_points` on a mesh of one rank (`parallel.mesh.make_mesh(1)`). The
 driver's `_Overhead` counts what the rounds pull to the host, the host
 synchronisation seconds and the bytes, calls and seconds of the
 collectives. From them, per round (`overhead_model`, the JAX program's
@@ -119,7 +119,7 @@ def run(args) -> dict:
     seeds = grid_seeds(args.seeds)
     cfg = load_config({"expand": {"max_rounds": args.rounds},
                        "optimize": {"max_iterations": args.nm_iters}})
-    mesh = make_mesh(device=device)
+    mesh = make_mesh(1, device=device)
     counter = _timing.Counts(device)
     res, wall = _timing.host_seconds(
         lambda: densify_multihost(scene, cfg, mesh=mesh, seed_points=seeds),

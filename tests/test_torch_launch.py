@@ -7,7 +7,7 @@ launcher and its process logic, on the CPU.
   * `ranks_per_process`: the cards a process sees (the first
     `parallel.num_devices` of them in a job of one process), or
     `parallel.num_devices` on the CPU, as the JAX side's forced host
-    device count;
+    device count; `make_mesh(n)` outside a job spans as many ranks;
   * one `--distributed` process with `parallel.num_devices` 2 on the CPU
     runs 2 gloo ranks and writes the PLY of the hand-started 2-rank job
     of `test_torch_multihost.py`, bitwise;
@@ -28,7 +28,11 @@ import torch
 from densepoints_tpu_torch import cli
 from densepoints_tpu_torch.io import read_ply
 from densepoints_tpu_torch.parallel import launch
-from densepoints_tpu_torch.parallel.mesh import make_mesh, plan_ranks
+from densepoints_tpu_torch.parallel.mesh import (
+    global_mesh,
+    make_mesh,
+    plan_ranks,
+)
 from tests.test_torch_multihost import plane_scene_json  # noqa: F401
 from tests.test_torch_scaling_programs import _running
 from tests.torch_parallel_util import ONE_THREAD, run_job
@@ -103,9 +107,41 @@ def test_ranks_per_process(monkeypatch, device, cards, nproc, num_devices,
     assert launch.ranks_per_process(device, nproc, num_devices) == 1
 
 
-def test_make_mesh_names_the_cli_launch():
-    with pytest.raises(ValueError, match="--distributed"):
-        make_mesh(2, device="cpu")
+# (device, cards seen, num_devices, L): JAX's `make_mesh(n)` takes
+# `devices[:n]`, every device for None or 0; the CPU gives n ranks.
+MESHES = [
+    ("cuda", 4, None, 4),
+    ("cuda", 4, 0, 4),
+    ("cuda", 4, 2, 2),
+    ("cuda", 4, 8, 4),
+    ("cuda", 1, 4, 1),
+    ("cuda", 1, None, 1),
+    ("cuda", 0, 2, 1),
+    ("cpu", 4, None, 1),
+    ("cpu", 0, 1, 1),
+    ("cpu", 0, 2, 2),
+    ("cpu", 4, 3, 3),
+]
+
+
+@pytest.mark.parametrize("device,cards,n,want", MESHES)
+def test_make_mesh_outside_a_job(monkeypatch, device, cards, n, want):
+    """Outside a job `make_mesh(n)` spans L ranks, by the rule of
+    `launch.ranks_per_process`: L = 1 is this process's world-size-1 mesh,
+    L > 1 a mesh of L ranks not yet started (backend "local") on the
+    first card or the CPU, which the job-level entry points start."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.delenv(launch.CHILD_ENV, raising=False)
+    mesh = make_mesh(n, device=device)
+    assert mesh.world_size == want and mesh.rank == 0
+    if want == 1:
+        assert mesh == global_mesh(device) and mesh.backend == "none"
+        assert mesh.started
+    else:
+        assert mesh.backend == "local" and not mesh.started
+        assert mesh.device == (torch.device("cuda", 0) if device == "cuda"
+                               else torch.device("cpu"))
+    assert global_mesh(device).world_size == 1
 
 
 def test_a_job_of_several_processes_needs_a_coordinator(plane_scene_json):

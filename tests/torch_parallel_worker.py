@@ -273,6 +273,19 @@ def task_plan(mesh, inp):
             "member_mask": plan.member_mask, "halo_mask": plan.halo_mask}
 
 
+def task_mesh(mesh, inp):
+    """`make_mesh` inside a job: the job's mesh for its world size, for 0
+    and for none given; `ValueError` for any other count."""
+    same = [pmesh.make_mesh(n, device="cpu") is mesh
+            for n in (None, 0, mesh.world_size)]
+    try:
+        pmesh.make_mesh(mesh.world_size + 1, device="cpu")
+        raised = ""
+    except ValueError as exc:
+        raised = str(exc)
+    return {"same": np.asarray(same), "raised": np.asarray(raised)}
+
+
 def task_cli(mesh, inp):
     """The CLI as one rank of the job (it joins the job itself)."""
     from densepoints_tpu_torch import cli
@@ -286,7 +299,7 @@ TASKS = {"insert": task_insert, "refine": task_refine,
          "nelder_mead": task_nelder_mead, "ba": task_ba, "seed": task_seed,
          "multihost": task_multihost, "clustered": task_clustered,
          "densify_distributed": task_densify_distributed,
-         "plan": task_plan, "cli": task_cli}
+         "plan": task_plan, "mesh": task_mesh, "cli": task_cli}
 
 
 def main():
