@@ -14,6 +14,8 @@
     python3 chip_smoke.py --measure
     python3 chip_smoke.py --bench
     python3 chip_smoke.py --cards
+    python3 chip_smoke.py --nm-graph
+    python3 chip_smoke.py --nm-compare
 
 Phases, each printing its own lines; any failure exits non-zero and prints
 no result line:
@@ -186,7 +188,24 @@ no result line:
      `entry.dryrun_multichip(8)`, eight gloo ranks sharing the card, which
      must print "refined 16 patches, 4 inserted" (`MULTICHIP_r05.json`),
      and nothing written into the checkout or the cwd. `--bench` runs
-     phase 15 alone.
+     phase 15 alone;
+  16. (run right after phase 10) Nelder-Mead as captured CUDA graphs
+     (`[nm-graph]`): phase 10's run captured and replayed graphs; the
+     CLI on the sphere through the eager witness (the solver's blocks run
+     eagerly on the card, its private `_eager`) at the default m and at
+     m = 1, and through graphs of m = 1, 2, 4 and 8 steps (its private
+     `_block_steps`), each cloud bitwise equal to phase 10's, each a row
+     of the table, the median of 3 runs (CLI wall, stage seconds, K1
+     launches, captures, replays, steps, solver calls, distinct (B, k)
+     shapes, iterations, host ms per iteration); m = 1 launches K1
+     exactly as often as the witness at m = 1 (the per-iteration loop),
+     the default m at most 2 (m - 1) more times per solver call; then
+     one run under
+     `torch.profiler`, whose K1 device kernels must number what the
+     counter says (launches inside a graph counted at each replay).
+     Every sphere CLI run and every phase-13 run prints its captures,
+     replays and steps on an `[nm-graph]` line. `--nm-graph` runs phases
+     10 and 16 alone.
 Each kernel's time stands beside its bound: the larger of the bytes it must
 move (every input read once, every output written once; of the image stack
 no more than the 4 taps of every texel this run's data samples) over
@@ -235,7 +254,15 @@ its K1 launches on every rank, no plain call), `densify_distributed`
 turned calibration `generate_seed_points` and `run_ba_sharded` (the
 RMSE within phase 12 d's tolerance of the single-rank solver's).
 `--profile-main` runs the CLI on the sphere scene under `torch.profiler`
-and prints one JSON line of its device ops, launches and stage seconds.
+and prints one JSON line of its device ops, launches, the device-busy
+share of the CLI's wall and stage seconds.
+`--nm-compare` prints one `[nm-compare]` JSON line of what the solver's
+host loop moves: the sphere CLI warm (solver calls, distinct (B, k)
+shapes, iterations, host ms per iteration, stage seconds) and its
+device-busy share, one warm `expand_profile` round's `optimize_nm` against
+the round, DTU run a's stage seconds, peak allocation, solver calls and
+device-busy share, and `scripts.bench`'s e2e patches/s; like
+`--time-allview`, a copy placed in another checkout measures that tree.
 `--kernel-resources` prints the registers, stack and spills `ptxas`
 reports for every kernel instance of the two warp + NCC kernels, the
 row-wise NCC kernel (none of whose instances may spill) and the two window
@@ -246,6 +273,7 @@ with another `ops/_build.py`, it says whether two builds made the same code.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -1153,7 +1181,10 @@ def phase_slice_path(device):
                                         torch.diag(step)])[None]
     start = f_auto(verts)[:, 0]
     t0 = time.perf_counter()
-    _, best, iters = nelder_mead(f_auto, x0, step, max_iterations=30)
+    # The eager blocks: the chunked objective is a parity path, never
+    # captured (the graph path's phase is 16).
+    _, best, iters = nelder_mead(f_auto, x0, step, max_iterations=30,
+                                 _eager=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     check(bool(torch.isfinite(best).all()), "Nelder-Mead: non-finite cost")
@@ -1308,6 +1339,11 @@ def _cli_on_sphere(device: str, settings: dict, flags=(), scene_path=None):
         launches, plain = _read_counters()
         check(rc == 0, f"cli.main returned {rc}")
         pts = read_ply(out)["positions"]
+    changed = {k: v for k, v in settings.items()
+               if SPHERE_SETTINGS.get(k) != v}
+    print(f"[nm-graph] cli {' '.join(flags)} {json.dumps(changed)}: "
+          f"{json.dumps(_nm_counters(captured['result'].metrics))}",
+          flush=True)
     check(pts.ndim == 2 and pts.shape[1] == 3, f"PLY positions {pts.shape}")
     check(bool(np.isfinite(pts).all()), "non-finite positions in the PLY")
     return pts, captured["result"], wall, launches, plain
@@ -1324,7 +1360,7 @@ def _radial_error(pts):
 
 def phase_main_path(device: str):
     """The CLI on the sphere scene; returns (launches, stage seconds,
-    positions, the final PatchState)."""
+    positions, the final PatchState, the `DensifyResult`)."""
     pts, result, wall, all_launches, all_plain = _cli_on_sphere(
         device, SPHERE_SETTINGS)
     metrics = result.metrics
@@ -1345,7 +1381,7 @@ def phase_main_path(device: str):
     check(len(pts) >= 1000, f"only {len(pts)} patches (need >= 1000)")
     check(med < 0.01 * SPHERE_RADIUS,
           f"median radial error {med:.4f} >= {0.01 * SPHERE_RADIUS}")
-    return launches, metrics.times, pts, result.patches
+    return launches, metrics.times, pts, result.patches, result
 
 
 def phase_seed_variants(device: str):
@@ -2540,6 +2576,8 @@ def _dtu_check(label, artifact, launches, plain, peak, wall):
                 for side in sides)
             / sum(side.get("count", 0) for side in sides), 2)
     print(f"[dtu] {label} {name}: {json.dumps(line)}", flush=True)
+    nm = {k: int(v) for k, v in counts.items() if k.startswith("nm_")}
+    print(f"[nm-graph] dtu {label}: {json.dumps(nm)}", flush=True)
     if record is not None:
         want = json.loads((ROOT / record).read_text())
         want_counts = _dtu_counts(want)
@@ -2566,6 +2604,8 @@ def phase_dtu(device):
     for label, *_ in DTU_RUNS:
         artifact, k1, plain, peak, wall, _ = dtu_run(label, device)
         _dtu_check(label, artifact, k1, plain, peak, wall)
+        check(artifact["counters"].get("nm_graph_captures", 0) > 0,
+              f"[dtu] {label}: Nelder-Mead captured no CUDA graph")
         launches[label] = k1
     return launches
 
@@ -2814,11 +2854,11 @@ def bench_only(device):
           flush=True)
 
 
-def profile_dtu(device):
-    """The `--profile-dtu` mode: run a of phase 13 under `torch.profiler`
-    (key averages only, no trace file); one JSON line of its device ops,
-    device time, K1's time and launches, the ten costliest kernels and the
-    device-busy share of `densify`'s wall and of the run's."""
+def _profile_dtu(device):
+    """Run a of phase 13 under `torch.profiler` (key averages only, no
+    trace file); a record of its device ops, device time, K1's time and
+    launches, the ten costliest kernels and the device-busy share of
+    `densify`'s wall and of the run's."""
     import torch
 
     artifact, k1, plain, peak, wall, prof = dtu_run("a", device, True)
@@ -2829,7 +2869,7 @@ def profile_dtu(device):
     k1_events = [e for e in kernels if "allview_ncc_kernel" in e.key]
     top = sorted(kernels, key=lambda e: e.device_time_total, reverse=True)
     densify_s = artifact["densify_seconds"]
-    print(json.dumps({
+    return {
         "root": str(ROOT), "card": torch.cuda.get_device_name(0),
         "device_ops": sum(e.count for e in kernels),
         "device_ms": round(device_ms, 3),
@@ -2845,7 +2885,74 @@ def profile_dtu(device):
         "busy_share_of_run": round(device_ms / 1e3 / wall, 4),
         "stage_s": artifact["stage_seconds"],
         "patches": artifact["patches"],
-    }), flush=True)
+    }
+
+
+def profile_dtu(device):
+    """The `--profile-dtu` mode: one JSON line of `_profile_dtu`."""
+    print(json.dumps(_profile_dtu(device)), flush=True)
+
+
+def nm_compare(device):
+    """The `--nm-compare` mode: the numbers the solver's host loop moves,
+    in one JSON line, for the tree this script lies in (copy it into
+    another checkout to run that tree's code; run the two in turns within
+    one call): the sphere through the CLI warm (solver calls, distinct (B,
+    k) shapes, iterations, host ms per iteration, stage seconds), its
+    device-busy share under `torch.profiler`, one warm `expand_profile`
+    round (`optimize_nm` against the round), DTU run a (stage seconds,
+    peak allocation, solver calls, host ms per iteration) and its
+    device-busy share, and `scripts.bench`'s e2e patches/s."""
+    import importlib
+
+    import torch
+
+    record = {"root": str(ROOT), "card": torch.cuda.get_device_name(0)}
+    _cli_on_sphere(device, SPHERE_SETTINGS)
+    with _nm_recorded() as calls:
+        pts, result, wall, launches, _ = _cli_on_sphere(device,
+                                                        SPHERE_SETTINGS)
+    record["sphere"] = {
+        "cli_wall_s": round(wall, 4),
+        "stage_s": {k: round(v, 4) for k, v in result.metrics.times.items()},
+        "patches": len(pts), "k1_launches": launches["allview_ncc"],
+        **_nm_counters(result.metrics), **_nm_summary(calls)}
+    prof = _profile_sphere(device)
+    record["profile_main"] = {k: prof[k] for k in (
+        "busy_share_of_cli", "cli_wall_s", "device_ops")}
+
+    program = importlib.import_module(
+        "densepoints_tpu_torch.scripts.expand_profile")
+    warm = program.run(program.parse_args(["--device", device]))["warm"]
+    record["expand_profile_warm"] = {
+        "optimize_nm_s": warm["optimize_nm"], "round_s": warm["TOTAL"],
+        "optimize_nm_share": round(warm["optimize_nm"] / warm["TOTAL"], 4)}
+
+    with _nm_recorded() as calls:
+        artifact, k1, _, peak, _, _ = dtu_run("a", device)
+    record["dtu_a"] = {
+        "densify_s": artifact["densify_seconds"],
+        "stage_s": artifact["stage_seconds"],
+        "patches": artifact["patches"], "k1_launches": k1,
+        "max_memory_allocated": peak,
+        **{k: int(v) for k, v in artifact.get("counters", {}).items()
+           if k.startswith("nm_")},
+        **_nm_summary(calls)}
+    prof = _profile_dtu(device)
+    record["profile_dtu"] = {k: prof[k] for k in (
+        "busy_share_of_densify", "densify_s", "device_ms", "device_ops",
+        "allview_ncc")}
+
+    program = importlib.import_module("densepoints_tpu_torch.scripts.bench")
+    bench = program.run(program.parse_args(["--device", device]))
+    record["bench_e2e_patches_per_sec"] = bench["e2e_patches_per_sec"]
+    print(f"[nm-compare] {json.dumps(record)}", flush=True)
+
+
+def nm_graph_only(device):
+    """The `--nm-graph` mode: phase 10, then phase 16."""
+    _, _, _, _, result = phase_main_path(device)
+    phase_nm_graph(device, result)
 
 
 KERNELS = (
@@ -3006,11 +3113,12 @@ def compare_scores(first, second):
     check(not differ, f"outputs differ: {differ}")
 
 
-def profile_main(device):
-    """The `--profile-main` mode: the CLI on the sphere scene once to warm
-    up, then once under `torch.profiler`; one JSON line of the device ops
-    of that run (count and milliseconds, the scoring kernel and the batched
-    matmuls apart), its launches, stage seconds, patches and radial error."""
+def _profile_sphere(device):
+    """The CLI on the sphere scene once to warm up, then once under
+    `torch.profiler`; a record of the device ops of that run (count and
+    milliseconds, the scoring kernel and the batched matmuls apart), its
+    launches, the device-busy share of the CLI's wall, stage seconds,
+    patches and radial error."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3034,16 +3142,199 @@ def profile_main(device):
         for key in keys:
             groups[key][0] += event.count
             groups[key][1] += event.device_time_total / 1e3
-    print(json.dumps({
+    return {
         "root": str(ROOT), "card": torch.cuda.get_device_name(0),
         "device_ops": {k: {"count": c, "ms": round(ms, 3)}
                        for k, (c, ms) in groups.items()},
         "allview_ncc_launches": launches["allview_ncc"],
         "plain_calls": sum(plain.values()),
         "cli_wall_s": round(wall, 3),
+        "busy_share_of_cli": round(groups["all"][1] / 1e3 / wall, 4),
         "stage_s": {k: round(v, 3) for k, v in metrics.times.items()},
+        "nm_counters": _nm_counters(metrics),
         "patches": len(pts), "median_radial_error": _radial_error(pts),
-    }), flush=True)
+    }
+
+
+def profile_main(device):
+    """The `--profile-main` mode: one JSON line of `_profile_sphere`."""
+    print(json.dumps(_profile_sphere(device)), flush=True)
+
+
+# The block sizes of the `[nm-graph]` table (steps per captured graph),
+# each the median of NM_REPEATS runs of the sphere.
+NM_BLOCKS = (1, 2, 4, 8)
+NM_REPEATS = 3
+
+
+def _nm_counters(metrics):
+    """The solver's counters of one run (absent in trees before the graph
+    path: then empty)."""
+    return {k: int(v) for k, v in metrics.counters.items()
+            if k.startswith("nm_")}
+
+
+@contextlib.contextmanager
+def _nm_recorded(**solver_kwargs):
+    """Within, every Nelder-Mead call of `pmvs.optimize` is timed between
+    two device synchronisations; yields the list of its calls, each {"B",
+    "k" (texture size), "s", "capture_s" (the graph's capture, within
+    "s"), "iterations" (the most any lane ran: the iterations of a
+    per-iteration loop)}. `solver_kwargs` go to the solver:
+    `_eager` (the eager witness on the card) and `_block_steps` (steps per
+    block), its private arguments."""
+    import torch
+
+    from densepoints_tpu_torch.pmvs import optimize
+
+    from densepoints_tpu_torch.ops import simplex
+
+    calls, k = [], [None]
+    solver, once = optimize.nelder_mead, optimize.optimize_patches_once
+    capture = getattr(simplex, "_capture", None)  # absent before graphs
+
+    def timed_capture(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = capture(*args)
+        torch.cuda.synchronize()
+        calls[-1]["capture_s"] = time.perf_counter() - t0
+        return out
+
+    def once_k(images, cameras, state, texture_size, config, mesh=None):
+        k[0] = texture_size
+        return once(images, cameras, state, texture_size, config, mesh=mesh)
+
+    def timed(f, x0, *args, **kwargs):
+        calls.append({"B": x0.shape[0], "k": k[0], "capture_s": 0.0})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solver(f, x0, *args, **kwargs, **solver_kwargs)
+        torch.cuda.synchronize()
+        calls[-1].update(s=time.perf_counter() - t0,
+                         iterations=int(out[2].max()) if len(x0) else 0)
+        return out
+
+    optimize.nelder_mead, optimize.optimize_patches_once = timed, once_k
+    if capture is not None:
+        simplex._capture = timed_capture
+    try:
+        yield calls
+    finally:
+        optimize.nelder_mead, optimize.optimize_patches_once = solver, once
+        if capture is not None:
+            simplex._capture = capture
+
+
+def _nm_summary(calls):
+    """Calls, distinct (B, k) shapes, iterations and host seconds of the
+    solver over one run; host ms per iteration."""
+    iters = sorted(c["iterations"] for c in calls)
+    total = sum(iters)
+    seconds = sum(c["s"] for c in calls)
+    return {
+        "calls": len(calls),
+        "distinct_shapes": len({(c["B"], c["k"]) for c in calls}),
+        "batch_sizes": sorted({c["B"] for c in calls}),
+        "iterations": total,
+        "iterations_per_call_min_median_max": (
+            [iters[0], iters[len(iters) // 2], iters[-1]] if iters else []),
+        "nm_s": round(seconds, 4),
+        "capture_s": round(sum(c["capture_s"] for c in calls), 4),
+        "host_ms_per_iteration": (round(1e3 * seconds / total, 4)
+                                  if total else None),
+    }
+
+
+def _cloud(result):
+    return {key: getattr(result.patches, key).cpu().numpy()
+            for key in ("position", "normal", "vis")}
+
+
+def _nm_line(label, result, launches, wall, calls):
+    row = {"cli_wall_s": round(wall, 3),
+           "stage_s": {k: round(result.metrics.times[k], 4)
+                       for k in ("seed_optimize", "expand")},
+           "k1_launches": launches["allview_ncc"],
+           **_nm_counters(result.metrics), **_nm_summary(calls)}
+    print(f"[nm-graph] {label}: {json.dumps(row)}", flush=True)
+    return row
+
+
+def phase_nm_graph(device, main_result):
+    """Phase 16 (after phase 10): Nelder-Mead as captured CUDA graphs.
+    Phase 10's run captured and replayed graphs; the eager witness (the
+    same blocks run eagerly) gives its cloud bitwise; so does every block
+    size m of `NM_BLOCKS`, each a row of the table (CLI wall, stage seconds,
+    K1 launches, captures, replays, steps, solver calls, distinct (B, k)
+    shapes, iterations, host ms per iteration); m = 1 launches K1 exactly
+    as often as the per-iteration loop (the witness at m = 1), the default
+    m at most 2 (m - 1) more times per call; and under `torch.profiler`
+    the device runs as many K1 kernels as the counter says, K1 named.
+    Returns the table."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from densepoints_tpu_torch.ops import simplex
+
+    main_counts = _nm_counters(main_result.metrics)
+    print(f"[nm-graph] main path (phase 10, m = {simplex._BLOCK}): "
+          f"{json.dumps(main_counts)}", flush=True)
+    check(main_counts["nm_graph_captures"] > 0
+          and main_counts["nm_graph_replays"] > 0,
+          "[nm-graph] the main path captured or replayed no graph")
+    want = _cloud(main_result)
+    table = {}
+    runs = [("eager witness", {"_eager": True}),
+            ("eager witness m=1", {"_eager": True, "_block_steps": 1})]
+    runs += [(f"m={m}", {"_block_steps": m}) for m in NM_BLOCKS]
+    for label, kwargs in runs:
+        rows = []
+        for _ in range(NM_REPEATS):
+            with _nm_recorded(**kwargs) as calls:
+                pts, result, wall, launches, _ = _cli_on_sphere(
+                    device, SPHERE_SETTINGS)
+            _bitwise(f"[nm-graph] {label}", _cloud(result), want)
+            rows.append(_nm_line(label, result, launches, wall, calls))
+        rows.sort(key=lambda row: row["host_ms_per_iteration"])
+        table[label] = dict(rows[len(rows) // 2],
+                            median_radial_error=_radial_error(pts))
+        spread = [row["host_ms_per_iteration"] for row in rows]
+        print(f"[nm-graph] {label}: host ms per iteration min / median / "
+              f"max {spread[0]} / {spread[len(spread) // 2]} / "
+              f"{spread[-1]} over {NM_REPEATS} runs", flush=True)
+    per_iteration = table["eager witness m=1"]
+    check(table["m=1"]["k1_launches"] == per_iteration["k1_launches"],
+          f"[nm-graph] m = 1 launched K1 {table['m=1']['k1_launches']} "
+          f"times, the per-iteration loop {per_iteration['k1_launches']}")
+    m = simplex._BLOCK
+    extra = table[f"m={m}"]["k1_launches"] - per_iteration["k1_launches"]
+    limit = 2 * (m - 1) * per_iteration["calls"]
+    print(f"[nm-graph] m = {m}: {extra} K1 launches over the per-iteration "
+          f"loop's {per_iteration['k1_launches']} (limit {limit}: "
+          f"{per_iteration['calls']} calls); {len(want['position'])} "
+          f"patches, median radial error "
+          f"{table[f'm={m}']['median_radial_error']:.7f}", flush=True)
+    check(0 <= extra <= limit, f"[nm-graph] {extra} more K1 launches")
+    for label in table:
+        if label.startswith("m="):
+            check(table[label]["nm_graph_captures"] > 0,
+                  f"[nm-graph] {label} captured no graph")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, result, _, launches, _ = _cli_on_sphere(device, SPHERE_SETTINGS)
+        torch.cuda.synchronize()
+    events = sum(e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "allview_ncc_kernel" in e.key)
+    print(f"[nm-graph] profiled: allview_ncc_kernel named in {events} device "
+          f"events; counter {launches['allview_ncc']}; "
+          f"{json.dumps(_nm_counters(result.metrics))}", flush=True)
+    check(events == launches["allview_ncc"] > 0,
+          f"[nm-graph] the profile shows {events} K1 kernels, the counter "
+          f"{launches['allview_ncc']}")
+    return table
 
 
 def time_window(device):
@@ -3271,7 +3562,7 @@ def parallel_only(device):
         turned = write_sphere_scene(Path(tmp), turn=0.002)
         ba_turned = _ba_rmse(turned, _with_settings(ba={"enable": True}),
                              device)
-    _, _, _, main_patches = phase_main_path(device)
+    _, _, _, main_patches, _ = phase_main_path(device)
     launches = phase_parallel(device, main_patches, ba_turned)
     print(json.dumps({"allview_ncc_launches_parallel": launches}),
           flush=True)
@@ -3291,7 +3582,8 @@ def main() -> int:
              "--parallel": parallel_only, "--dtu": dtu_only,
              "--measure": measure_only, "--bench": bench_only,
              "--cards": cards_only,
-             "--profile-dtu": profile_dtu}
+             "--profile-dtu": profile_dtu, "--nm-compare": nm_compare,
+             "--nm-graph": nm_graph_only}
     if len(sys.argv) == 4 and sys.argv[1] == "--compare-scores":
         try:
             compare_scores(Path(sys.argv[2]), Path(sys.argv[3]))
@@ -3328,7 +3620,8 @@ def main() -> int:
         # window kernels on the ablation path above.
         phase_seed_variants("cuda")
         (launches["allview_ncc"], main_times, main_pts,
-         main_patches) = phase_main_path("cuda")
+         main_patches, main_result) = phase_main_path("cuda")
+        phase_nm_graph("cuda", main_result)
         ba_turned = phase_rest_of_pipeline("cuda", main_pts, main_times,
                                            main_patches)
         parallel = phase_parallel("cuda", main_patches, ba_turned)

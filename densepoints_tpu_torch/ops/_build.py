@@ -7,6 +7,9 @@ build once. The file name carries a hash of all sources,
 headers and flags, so an edit of any of them builds anew. Functions are
 bound with ctypes; `launch` sets the argument types (pointers and the
 stream as `c_void_p`, or ctypes would cut them to 32 bits).
+`count_launch` keeps a wrapper's launch counter true under CUDA graphs: a
+launch made while a graph is captured runs nothing and is recorded, and
+`count_replay` adds the recorded launches at each replay.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from pathlib import Path
 
 __all__ = [
     "build_library", "check_tensor", "check_warp_scene", "launch",
+    "count_launch", "take_recorded", "count_replay",
     "VOID_P", "INT64", "INT",
 ]
 
@@ -36,6 +40,9 @@ _NVCC_FLAGS = (
 _lock = threading.Lock()
 _lib = None
 _bound: dict[str, object] = {}
+# Launches recorded by the CUDA graph under capture, by the module whose
+# `KERNEL_LAUNCHES` counts them.
+_recorded: dict[str, int] = {}
 
 
 def _nvcc() -> str:
@@ -206,3 +213,32 @@ def launch(name: str, argtypes, device, *args):
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
+
+
+def count_launch(module: str):
+    """Count one launch of a kernel on `module`'s `KERNEL_LAUNCHES`, or,
+    while the current stream captures a CUDA graph, record it for the
+    graph's replays (a capture launches nothing)."""
+    import sys
+
+    import torch
+
+    if torch.cuda.is_current_stream_capturing():
+        _recorded[module] = _recorded.get(module, 0) + 1
+    else:
+        sys.modules[module].KERNEL_LAUNCHES += 1
+
+
+def take_recorded() -> dict[str, int]:
+    """The launches recorded since the last call, by module; clears them."""
+    out = dict(_recorded)
+    _recorded.clear()
+    return out
+
+
+def count_replay(recorded: dict[str, int]):
+    """Count one replay of a graph that recorded `recorded`."""
+    import sys
+
+    for module, n in recorded.items():
+        sys.modules[module].KERNEL_LAUNCHES += n

@@ -15,7 +15,11 @@ normal and reference view and computes the patch frames itself, so no torch
 op runs before the launch. On a CPU tensor it runs `allview_scores_plain`,
 the plain torch version of the same contract (frames by
 `ops.warp.patch_frames`).
-`KERNEL_LAUNCHES` and `PLAIN_CALLS` count which path ran.
+`KERNEL_LAUNCHES` and `PLAIN_CALLS` count which path ran; under a CUDA
+graph `KERNEL_LAUNCHES` counts the launches the device makes (those the
+capture recorded, at each replay), not the capture itself.
+`allview_scorer` binds the stack and the cameras once for a caller that
+scores many batches against them (Nelder-Mead, twice a step).
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from densepoints_tpu_torch.ops.warp import patch_textures
 
 __all__ = [
     "allview_scores",
+    "allview_scorer",
     "allview_scores_plain",
     "allview_scores_cuda",
     "build_kernel",
@@ -74,7 +79,6 @@ def allview_scores_cuda(
     one CUDA device. Returns (scores (B, V) f32, anchor (B,) int64,
     anchor_ok (B,) bool).
     """
-    global KERNEL_LAUNCHES
     k = int(texture_size)
     V, H, W, B = _build.check_warp_scene(
         images, K, position, normal, ref, k
@@ -98,7 +102,7 @@ def allview_scores_cuda(
     anchor_ok = torch.empty((B,), dtype=torch.bool, device=dev)
     if B == 0:
         return scores, anchor, anchor_ok
-    KERNEL_LAUNCHES += 1
+    _build.count_launch(__name__)
     _build.launch(
         "allview_ncc_launch", _ARGTYPES, dev,
         images.data_ptr(), V, H, W,
@@ -148,6 +152,34 @@ def allview_scores_plain(
     return scores, anchor, aok
 
 
+def allview_scorer(images: torch.Tensor, cameras: Cameras,
+                   texture_size: int):
+    """`allview_scores` with the stack and the cameras bound: returns
+    score(position, normal, ref, vis) -> (scores, anchor, anchor_ok). The
+    cameras' contiguous copies are made here, once."""
+    if images.device.type == "cpu":
+
+        def plain(position, normal, ref, vis):
+            global PLAIN_CALLS
+            PLAIN_CALLS += 1
+            return allview_scores_plain(
+                images, cameras, position, normal, ref, vis, texture_size
+            )
+
+        return plain
+    scene = (images, cameras.K.contiguous(), cameras.E.contiguous(),
+             cameras.C.contiguous(), cameras.x_axis.contiguous(),
+             cameras.width, cameras.height)
+
+    def score(position, normal, ref, vis):
+        return allview_scores_cuda(
+            *scene, position.contiguous(), normal.contiguous(),
+            ref.to(torch.int64).contiguous(), vis.contiguous(), texture_size,
+        )
+
+    return score
+
+
 def allview_scores(
     images: torch.Tensor,
     cameras: Cameras,
@@ -159,16 +191,6 @@ def allview_scores(
 ):
     """(scores (B, V), anchor (B,), anchor_ok (B,)): the CUDA kernel for
     CUDA tensors, the plain torch version for CPU tensors."""
-    global PLAIN_CALLS
-    if images.device.type == "cpu":
-        PLAIN_CALLS += 1
-        return allview_scores_plain(
-            images, cameras, position, normal, ref, vis, texture_size
-        )
-    return allview_scores_cuda(
-        images, cameras.K.contiguous(), cameras.E.contiguous(),
-        cameras.C.contiguous(), cameras.x_axis.contiguous(),
-        cameras.width, cameras.height,
-        position.contiguous(), normal.contiguous(),
-        ref.to(torch.int64).contiguous(), vis.contiguous(), texture_size,
+    return allview_scorer(images, cameras, texture_size)(
+        position, normal, ref, vis
     )

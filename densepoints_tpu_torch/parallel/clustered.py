@@ -45,6 +45,7 @@ import torch
 
 from densepoints_tpu_torch.config import PipelineConfig
 from densepoints_tpu_torch.core.cameras import Cameras
+from densepoints_tpu_torch.ops import simplex
 from densepoints_tpu_torch.parallel.clusters import (
     cluster_halos,
     cluster_views,
@@ -227,6 +228,7 @@ def densify_clustered(
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
         else None
     metrics = StageMetrics(sync=sync)
+    nm_before = simplex.counts()
     plan = plan_clusters(cameras, n_clusters or nproc, pid, halo_threshold)
     lv = _LocalViews(cameras, plan)
     if image_loader is not None:
@@ -427,5 +429,6 @@ def densify_clustered(
         ).compact()
     metrics.count("patches_final", final.capacity)
 
+    simplex.count_since(metrics, nm_before)
     log.info("clustered densify done: %s", metrics.summary())
     return DensifyResult(patches=final, metrics=metrics)

@@ -24,6 +24,7 @@ import torch
 
 from densepoints_tpu_torch.config import PipelineConfig
 from densepoints_tpu_torch.io.scene import Scene
+from densepoints_tpu_torch.ops import simplex
 from densepoints_tpu_torch.parallel.distributed import (
     distributed_insert,
     distributed_refine_step,
@@ -70,6 +71,7 @@ def densify_distributed(
         return local_job.run("densify_distributed", mesh, scene=scene,
                              config=config)
     metrics = StageMetrics(sync=_sync(mesh))
+    nm_before = simplex.counts()
     dev = mesh.device
     cameras = scene.cameras.to(dev)
     images = torch.as_tensor(scene.images, dtype=torch.float32, device=dev)
@@ -153,5 +155,6 @@ def densify_distributed(
                 state, color=compute_color(cameras, colors, state.position)
             )
 
+    simplex.count_since(metrics, nm_before)
     log.info("distributed densify done: %s", metrics.summary())
     return DensifyResult(patches=state, metrics=metrics)

@@ -29,7 +29,10 @@ import torch
 
 from densepoints_tpu_torch.config import OptimizeConfig
 from densepoints_tpu_torch.core.cameras import Cameras
-from densepoints_tpu_torch.ops.allview_ncc import allview_scores
+from densepoints_tpu_torch.ops.allview_ncc import (
+    allview_scorer,
+    allview_scores,
+)
 from densepoints_tpu_torch.ops.ncc import ncc_pairs
 from densepoints_tpu_torch.ops.simplex import nelder_mead
 from densepoints_tpu_torch.ops.warp import compact_visible
@@ -234,27 +237,34 @@ def photometric_objective_paged(
     """All-views batched objective f(params (B, K, 3)) -> (B, K).
 
     The K candidate points of every lane are scored in ONE scoring pass
-    over B * K rows (rows are independent, so this equals K passes)."""
+    over B * K rows (rows are independent, so this equals K passes).
+    What a call never changes is made once: the cameras for the kernel,
+    and the (B * K)-row ref and vis at the first call with each K. So `f`
+    runs no host read and builds no tensor on the host, and Nelder-Mead can
+    capture it in a CUDA graph."""
     payload = _payload(vis)
-    n_payload = payload.sum(dim=1)
-    C_ref = cameras.C[ref]
+    n_payload = payload.sum(dim=1)[:, None]
+    C_ref = cameras.C[ref][:, None, :]
+    score = allview_scorer(images, cameras, texture_size)
+    ref = ref.to(torch.int64)
+    rows = {}  # K -> (ref, vis) repeated K times per lane
 
     def f(params: torch.Tensor) -> torch.Tensor:
         B, K, _ = params.shape
+        if K not in rows:
+            rows[K] = (ref.repeat_interleave(K),
+                       vis.repeat_interleave(K, dim=0))
         pos, nrm = unparametrize(
-            params, position0[:, None, :], normal0[:, None, :],
-            C_ref[:, None, :],
+            params, position0[:, None, :], normal0[:, None, :], C_ref
         )
-        scores, _, _ = allview_scores(
-            images, cameras, pos.reshape(B * K, 3), nrm.reshape(B * K, 3),
-            ref.repeat_interleave(K), vis.repeat_interleave(K, dim=0),
-            texture_size,
+        scores, _, _ = score(
+            pos.reshape(B * K, 3), nrm.reshape(B * K, 3), *rows[K]
         )
         err = torch.where(
             payload[:, None, :], 1.0 - scores.reshape(B, K, -1), 0.0
         ).sum(dim=2)
-        n = n_payload[:, None]
-        return torch.where(n > 0, err / torch.clamp_min(n, 1), 2.0)
+        return torch.where(n_payload > 0,
+                           err / torch.clamp_min(n_payload, 1), 2.0)
 
     return f
 

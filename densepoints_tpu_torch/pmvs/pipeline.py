@@ -25,6 +25,7 @@ from densepoints_tpu_torch.core.cameras import Cameras
 from densepoints_tpu_torch.io.ply import write_ply
 from densepoints_tpu_torch.io.scene import Scene
 from densepoints_tpu_torch.multiscale import densify_multiscale
+from densepoints_tpu_torch.ops import simplex
 from densepoints_tpu_torch.pmvs.expand import expand_patches
 from densepoints_tpu_torch.pmvs.filter import run_filters
 from densepoints_tpu_torch.pmvs.optimize import filter_by_error, optimize_patches
@@ -119,18 +120,22 @@ def densify(
     written as `densify.pt.trace.json` into `runtime.profile_dir`.
     """
     device = torch.device(device)
+    nm_before = simplex.counts()
     profile_dir = config.runtime.profile_dir
     if not profile_dir:
-        return _densify_inner(scene, config, device)
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
         result = _densify_inner(scene, config, device)
-    Path(profile_dir).mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(Path(profile_dir) / "densify.pt.trace.json"))
+    else:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            result = _densify_inner(scene, config, device)
+        Path(profile_dir).mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(
+            str(Path(profile_dir) / "densify.pt.trace.json"))
+    simplex.count_since(result.metrics, nm_before)
     return result
 
 
