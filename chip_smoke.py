@@ -150,8 +150,10 @@ no result line:
      median under 0.5 mm, >= 1,500 patches; c: the occlusion filter's kept
      patches' median distance to the surface union under 2 mm; d: run a's
      gates at its own pixel footprint, exact median under 650 / 1160 mm,
-     completeness under 2 mm >= 0.95, >= 5,000 patches). `--dtu` runs
-     phase 13 alone; `--profile-dtu` runs a under `torch.profiler` (key
+     completeness under 2 mm >= 0.95, >= 5,000 patches). Run a's largest
+     Nelder-Mead call holds the step kernels against their plain twins as
+     phase 16 does at the sphere (`[nm-step] ... dtu_a_largest`). `--dtu`
+     runs phase 13 alone; `--profile-dtu` runs a under `torch.profiler` (key
      averages, no trace file) and prints its device ops, device time, K1's
      time and launches, the ten costliest kernels and the device-busy
      share of `densify`'s wall;
@@ -189,23 +191,37 @@ no result line:
      must print "refined 16 patches, 4 inserted" (`MULTICHIP_r05.json`),
      and nothing written into the checkout or the cwd. `--bench` runs
      phase 15 alone;
-  16. (run right after phase 10) Nelder-Mead as captured CUDA graphs
-     (`[nm-graph]`): phase 10's run captured and replayed graphs; the
-     CLI on the sphere through the eager witness (the solver's blocks run
-     eagerly on the card, its private `_eager`) at the default m and at
-     m = 1, and through graphs of m = 1, 2, 4 and 8 steps (its private
-     `_block_steps`), each cloud bitwise equal to phase 10's, each a row
-     of the table, the median of 3 runs (CLI wall, stage seconds, K1
+  16. (run right after phase 10) Nelder-Mead as captured CUDA graphs of
+     the step kernels (`[nm-graph]`, `[nm-step]`; a step of the
+     photometric objective is `nm_reflect`, K1, `nm_contract`, K1,
+     `nm_accept`, `csrc/nm_step.cu`): phase 10's run captured and
+     replayed graphs and launched each step kernel once a step; the CLI
+     on the sphere through the eager witness (the kernel steps run
+     eagerly on the card, the solver's private `_eager`) at m = 1 (and at
+     the default m if it is not 1), and through graphs of m = 1, 2, 4 and
+     8 steps (its private `_block_steps`), each cloud bitwise equal to
+     phase 10's, and through the torch step (the objective handed to the
+     solver as a plain callable), whose cloud must be within 2% of the
+     count and under the radial error's gate; each a row of the table, the
+     median of 3 runs (CLI wall, stage seconds, K1 and step-kernel
      launches, captures, replays, steps, solver calls, distinct (B, k)
-     shapes, iterations, host ms per iteration); m = 1 launches K1
-     exactly as often as the witness at m = 1 (the per-iteration loop),
-     the default m at most 2 (m - 1) more times per solver call; then
-     one run under
-     `torch.profiler`, whose K1 device kernels must number what the
-     counter says (launches inside a graph counted at each replay).
-     Every sphere CLI run and every phase-13 run prints its captures,
-     replays and steps on an `[nm-graph]` line. `--nm-graph` runs phases
-     10 and 16 alone.
+     shapes, iterations, host ms per iteration, and the first expansion
+     call's step: device ms by CUDA events around a replay, host ms from
+     one replay to the next); m = 1 launches K1 exactly as often as the
+     witness at m = 1 (the per-iteration loop), the default m at most
+     2 (m - 1) more times per solver call; K1 launches of the kernel and
+     the torch step side by side. Then the three step kernels against
+     their plain twins along the sphere's first expansion call (every
+     step, on the same inputs: sorts, `done`, `iters`, the step and the
+     exit flag exactly, f32 values within 1e-6 relative above magnitude
+     1; lanes whose branch test lies within 1e-6 of its threshold are
+     counted as branched apart) and timed back to back beside their
+     bound; phase 13 does the same at DTU run a's largest call. Then one
+     run under `torch.profiler`, whose K1 and step-kernel device kernels
+     must number what the counters say (launches inside a graph counted
+     at each replay). Every sphere CLI run and every phase-13 run prints
+     its captures, replays, steps and step-kernel launches on an
+     `[nm-graph]` line. `--nm-graph` runs phases 10 and 16 alone.
 Each kernel's time stands beside its bound: the larger of the bytes it must
 move (every input read once, every output written once; of the image stack
 no more than the 4 taps of every texel this run's data samples) over
@@ -257,12 +273,15 @@ RMSE within phase 12 d's tolerance of the single-rank solver's).
 and prints one JSON line of its device ops, launches, the device-busy
 share of the CLI's wall and stage seconds.
 `--nm-compare` prints one `[nm-compare]` JSON line of what the solver's
-host loop moves: the sphere CLI warm (solver calls, distinct (B, k)
-shapes, iterations, host ms per iteration, stage seconds) and its
-device-busy share, one warm `expand_profile` round's `optimize_nm` against
-the round, DTU run a's stage seconds, peak allocation, solver calls and
-device-busy share, and `scripts.bench`'s e2e patches/s; like
-`--time-allview`, a copy placed in another checkout measures that tree.
+step moves: the sphere CLI warm (solver calls, distinct (B, k) shapes,
+iterations, host ms per iteration, stage seconds, launches, the first
+expansion call's step: device ms by CUDA events around a replay, host ms
+from one replay to the next) and its device ops and device-busy share,
+one warm `expand_profile` round's `optimize_nm` against the round, DTU
+run a's stage seconds, peak allocation, solver calls, its largest call's
+step and device-busy share, runs b, c and d's stage seconds, and
+`scripts.bench`'s e2e patches/s; like `--time-allview`, a copy placed in
+another checkout measures that tree.
 `--kernel-resources` prints the registers, stack and spills `ptxas`
 reports for every kernel instance of the two warp + NCC kernels, the
 row-wise NCC kernel (none of whose instances may spill) and the two window
@@ -1085,15 +1104,44 @@ def _counters():
             "window_textures": window_textures}
 
 
+# The Nelder-Mead step kernels of `ops.nm_step`: record name -> counter.
+NM_KERNELS = {"nm_reflect": "REFLECT_LAUNCHES",
+              "nm_contract": "CONTRACT_LAUNCHES",
+              "nm_accept": "ACCEPT_LAUNCHES"}
+
+
+def _nm_step():
+    """`ops.nm_step`, or None in a tree whose solver steps in torch alone
+    (before the step kernels: a copy of this script measuring the parent)."""
+    import importlib.util
+
+    if importlib.util.find_spec("densepoints_tpu_torch.ops.nm_step") is None:
+        return None
+    from densepoints_tpu_torch.ops import nm_step
+
+    return nm_step
+
+
 def _reset_counters():
     for module in _counters().values():
         module.KERNEL_LAUNCHES = 0
         module.PLAIN_CALLS = 0
+    nm = _nm_step()
+    if nm is not None:
+        for counter in NM_KERNELS.values():
+            setattr(nm, counter, 0)
+        nm.PLAIN_CALLS = 0
 
 
 def _read_counters():
-    return ({name: m.KERNEL_LAUNCHES for name, m in _counters().items()},
-            {name: m.PLAIN_CALLS for name, m in _counters().items()})
+    launches = {name: m.KERNEL_LAUNCHES for name, m in _counters().items()}
+    plain = {name: m.PLAIN_CALLS for name, m in _counters().items()}
+    nm = _nm_step()
+    if nm is not None:
+        launches.update({name: getattr(nm, counter)
+                         for name, counter in NM_KERNELS.items()})
+        plain["nm_step"] = nm.PLAIN_CALLS
+    return launches, plain
 
 
 def _objectives_agree(label, inputs, k, max_score_views, K, seed):
@@ -1359,8 +1407,8 @@ def _radial_error(pts):
 
 
 def phase_main_path(device: str):
-    """The CLI on the sphere scene; returns (launches, stage seconds,
-    positions, the final PatchState, the `DensifyResult`)."""
+    """The CLI on the sphere scene; returns (launches by kernel, stage
+    seconds, positions, the final PatchState, the `DensifyResult`)."""
     pts, result, wall, all_launches, all_plain = _cli_on_sphere(
         device, SPHERE_SETTINGS)
     metrics = result.metrics
@@ -1378,10 +1426,16 @@ def phase_main_path(device: str):
     if device == "cuda":
         check(launches > 0, "the main path launched no kernel")
         check(plain == 0, f"the main path took the plain path {plain} times")
+        steps = {all_launches[name] for name in NM_KERNELS}
+        print(f"[main] step kernels: " + " ".join(
+            f"{name}={all_launches[name]}" for name in NM_KERNELS),
+            flush=True)
+        check(len(steps) == 1 and steps.pop() > 0,
+              "the main path did not launch each step kernel once a step")
     check(len(pts) >= 1000, f"only {len(pts)} patches (need >= 1000)")
     check(med < 0.01 * SPHERE_RADIUS,
           f"median radial error {med:.4f} >= {0.01 * SPHERE_RADIUS}")
-    return launches, metrics.times, pts, result.patches, result
+    return all_launches, metrics.times, pts, result.patches, result
 
 
 def phase_seed_variants(device: str):
@@ -2596,14 +2650,25 @@ def _dtu_check(label, artifact, launches, plain, peak, wall):
               f"[dtu] {label}: {gate} {value} is not {op} {limit:g}")
 
 
-def phase_dtu(device):
+def phase_dtu(device, nm_results=None):
     """Phase 13: the three end-to-end programs on the card, runs a, b and c
     at the JAX package's recorded configurations and d at 312 views;
-    returns the K1 launches of each run by label."""
+    returns the K1 launches of each run by label. Run a's largest solver
+    call holds the step kernels against their twins (`_nm_kernel_check`),
+    their records added to `nm_results[kernel]["dtu_a_largest"]`."""
     launches = {}
+    nm_results = {} if nm_results is None else nm_results
     for label, *_ in DTU_RUNS:
-        artifact, k1, plain, peak, wall, _ = dtu_run(label, device)
+        with _nm_recorded(keep_inputs=label == "a") as calls:
+            artifact, k1, plain, peak, wall, _ = dtu_run(label, device)
         _dtu_check(label, artifact, k1, plain, peak, wall)
+        if label == "a":
+            largest = max(calls, key=lambda call: call["B"])["inputs"]
+            calls.clear()
+            records, _, _ = _nm_kernel_check("dtu_a_largest", largest)
+            del largest
+            for name, record in records.items():
+                nm_results.setdefault(name, {})["dtu_a_largest"] = record
         check(artifact["counters"].get("nm_graph_captures", 0) > 0,
               f"[dtu] {label}: Nelder-Mead captured no CUDA graph")
         launches[label] = k1
@@ -2907,16 +2972,22 @@ def nm_compare(device):
 
     import torch
 
-    record = {"root": str(ROOT), "card": torch.cuda.get_device_name(0)}
+    from densepoints_tpu_torch.ops import simplex
+
+    record = {"root": str(ROOT), "card": torch.cuda.get_device_name(0),
+              "block_steps": simplex._BLOCK}
     _cli_on_sphere(device, SPHERE_SETTINGS)
-    with _nm_recorded() as calls:
+    with _nm_recorded(step_times=True) as calls:
         pts, result, wall, launches, _ = _cli_on_sphere(device,
                                                         SPHERE_SETTINGS)
     record["sphere"] = {
         "cli_wall_s": round(wall, 4),
         "stage_s": {k: round(v, 4) for k, v in result.metrics.times.items()},
-        "patches": len(pts), "k1_launches": launches["allview_ncc"],
-        **_nm_counters(result.metrics), **_nm_summary(calls)}
+        "patches": len(pts), "median_radial_error": _radial_error(pts),
+        "launches": launches, **_nm_counters(result.metrics),
+        **_nm_summary(calls),
+        "first_expand_step": _step_split(_first_expand(calls),
+                                         simplex._BLOCK)}
     prof = _profile_sphere(device)
     record["profile_main"] = {k: prof[k] for k in (
         "busy_share_of_cli", "cli_wall_s", "device_ops")}
@@ -2928,7 +2999,7 @@ def nm_compare(device):
         "optimize_nm_s": warm["optimize_nm"], "round_s": warm["TOTAL"],
         "optimize_nm_share": round(warm["optimize_nm"] / warm["TOTAL"], 4)}
 
-    with _nm_recorded() as calls:
+    with _nm_recorded(step_times=True) as calls:
         artifact, k1, _, peak, _, _ = dtu_run("a", device)
     record["dtu_a"] = {
         "densify_s": artifact["densify_seconds"],
@@ -2937,7 +3008,15 @@ def nm_compare(device):
         "max_memory_allocated": peak,
         **{k: int(v) for k, v in artifact.get("counters", {}).items()
            if k.startswith("nm_")},
-        **_nm_summary(calls)}
+        **_nm_summary(calls),
+        "largest_call_step": _step_split(
+            max(calls, key=lambda call: call["B"]), simplex._BLOCK)}
+    for label in ("b", "c", "d"):
+        artifact, k1, _, _, _, _ = dtu_run(label, device)
+        record[f"dtu_{label}"] = {
+            "densify_s": artifact["densify_seconds"],
+            "stage_s": artifact["stage_seconds"],
+            "patches": artifact["patches"], "k1_launches": k1}
     prof = _profile_dtu(device)
     record["profile_dtu"] = {k: prof[k] for k in (
         "busy_share_of_densify", "densify_s", "device_ms", "device_ops",
@@ -2968,6 +3047,19 @@ KERNELS = (
      "script"),
     ("window_textures", "densepoints_tpu_torch/csrc/window_textures.cu",
      "scripts/kernel_paged_ablate.py:42", "expand_b4096_v50"),
+    # The step kernels have no Pallas counterpart: XLA fuses the same work
+    # of the JAX package's while_loop body and objective.
+    ("nm_reflect", "densepoints_tpu_torch/csrc/nm_step.cu",
+     "no Pallas kernel; XLA's fusion of densepoints_tpu/ops/simplex.py:55-62"
+     " and densepoints_tpu/pmvs/optimize.py:319-321", "sphere_expand1"),
+    ("nm_contract", "densepoints_tpu_torch/csrc/nm_step.cu",
+     "no Pallas kernel; XLA's fusion of densepoints_tpu/ops/simplex.py:67-74"
+     " and densepoints_tpu/pmvs/optimize.py:319-321 and :326-335",
+     "sphere_expand1"),
+    ("nm_accept", "densepoints_tpu_torch/csrc/nm_step.cu",
+     "no Pallas kernel; XLA's fusion of densepoints_tpu/ops/simplex.py:81-103"
+     ", :111-117 (the loop's predicate) and densepoints_tpu/pmvs/"
+     "optimize.py:326-335", "sphere_expand1"),
 )
 
 
@@ -3130,13 +3222,15 @@ def _profile_sphere(device):
         torch.cuda.synchronize()
     metrics = result.metrics
     groups = {"all": [0, 0.0], "allview_ncc_kernel": [0, 0.0],
-              "bmm_or_gemm": [0, 0.0]}
+              "nm_step_kernels": [0, 0.0], "bmm_or_gemm": [0, 0.0]}
     for event in prof.key_averages():
         if event.device_type != torch.autograd.DeviceType.CUDA:
             continue
         keys = ["all"]
         if "allview_ncc_kernel" in event.key:
             keys.append("allview_ncc_kernel")
+        elif any(f"{name}_kernel" in event.key for name in NM_KERNELS):
+            keys.append("nm_step_kernels")
         elif "gemm" in event.key.lower() or "bmm" in event.key.lower():
             keys.append("bmm_or_gemm")
         for key in keys:
@@ -3174,15 +3268,51 @@ def _nm_counters(metrics):
             if k.startswith("nm_")}
 
 
+class _TimedGraph:
+    """A captured graph whose replays are timed: the device's milliseconds
+    between two CUDA events around each replay, and the host's from one
+    replay's start to the next (the enqueue, the counters and the exit
+    read in between: a step's host time when a block is one step)."""
+
+    def __init__(self, graph, call):
+        self.graph, self.call, self.events, self.t = graph, call, [], None
+        call["replay_host_ms"] = []
+
+    def replay(self):
+        import torch
+
+        now = time.perf_counter()
+        if self.t is not None:
+            self.call["replay_host_ms"].append(1e3 * (now - self.t))
+        self.t = now
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.graph.replay()
+        end.record()
+        self.events.append((start, end))
+
+    def finish(self):
+        """After the call, synchronised: the device times; the graph goes."""
+        self.call["replay_device_ms"] = [s.elapsed_time(e)
+                                         for s, e in self.events]
+        self.graph = self.events = None
+
+
 @contextlib.contextmanager
-def _nm_recorded(**solver_kwargs):
+def _nm_recorded(torch_step=False, keep_inputs=False, step_times=False,
+                 **solver_kwargs):
     """Within, every Nelder-Mead call of `pmvs.optimize` is timed between
     two device synchronisations; yields the list of its calls, each {"B",
-    "k" (texture size), "s", "capture_s" (the graph's capture, within
-    "s"), "iterations" (the most any lane ran: the iterations of a
-    per-iteration loop)}. `solver_kwargs` go to the solver:
-    `_eager` (the eager witness on the card) and `_block_steps` (steps per
-    block), its private arguments."""
+    "k" (texture size), "max_iterations", "s", "capture_s" (the graph's
+    capture, within "s"), "iterations" (the most any lane ran: the
+    iterations of a per-iteration loop)}. `torch_step` hands the solver
+    the objective as a plain callable, so it steps with the torch step
+    (`ops.simplex._step`) and not the step kernels; `keep_inputs` keeps
+    each call's (objective, x0, arguments) as "inputs"; `step_times` times
+    each replay (`_TimedGraph`: "replay_device_ms", "replay_host_ms").
+    `solver_kwargs` go to the solver: `_eager` (the eager witness on the
+    card) and `_block_steps` (steps per block), its private arguments."""
     import torch
 
     from densepoints_tpu_torch.pmvs import optimize
@@ -3192,6 +3322,7 @@ def _nm_recorded(**solver_kwargs):
     calls, k = [], [None]
     solver, once = optimize.nelder_mead, optimize.optimize_patches_once
     capture = getattr(simplex, "_capture", None)  # absent before graphs
+    nm = _nm_step()
 
     def timed_capture(*args):
         torch.cuda.synchronize()
@@ -3199,6 +3330,10 @@ def _nm_recorded(**solver_kwargs):
         out = capture(*args)
         torch.cuda.synchronize()
         calls[-1]["capture_s"] = time.perf_counter() - t0
+        if step_times:
+            graph, flag, recorded = out
+            calls[-1]["timer"] = _TimedGraph(graph, calls[-1])
+            out = (calls[-1]["timer"], flag, recorded)
         return out
 
     def once_k(images, cameras, state, texture_size, config, mesh=None):
@@ -3206,13 +3341,20 @@ def _nm_recorded(**solver_kwargs):
         return once(images, cameras, state, texture_size, config, mesh=mesh)
 
     def timed(f, x0, *args, **kwargs):
-        calls.append({"B": x0.shape[0], "k": k[0], "capture_s": 0.0})
+        calls.append({"B": x0.shape[0], "k": k[0], "capture_s": 0.0,
+                      "max_iterations": kwargs.get("max_iterations")})
+        if keep_inputs:
+            calls[-1]["inputs"] = (f, x0, args, kwargs)
+        if torch_step and nm is not None and isinstance(f, nm.StepObjective):
+            f = (lambda objective: lambda params: objective(params))(f)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = solver(f, x0, *args, **kwargs, **solver_kwargs)
         torch.cuda.synchronize()
         calls[-1].update(s=time.perf_counter() - t0,
                          iterations=int(out[2].max()) if len(x0) else 0)
+        if "timer" in calls[-1]:
+            calls[-1].pop("timer").finish()
         return out
 
     optimize.nelder_mead, optimize.optimize_patches_once = timed, once_k
@@ -3224,6 +3366,26 @@ def _nm_recorded(**solver_kwargs):
         optimize.nelder_mead, optimize.optimize_patches_once = solver, once
         if capture is not None:
             simplex._capture = capture
+
+
+def _median(values):
+    values = sorted(values)
+    return values[len(values) // 2] if values else None
+
+
+def _step_split(call, m=1):
+    """One solver call's step, device against host: medians over its
+    replays of the device ms (CUDA events around a replay) and of the
+    host's ms from one replay to the next, each over the m steps of a
+    block."""
+    device = call.get("replay_device_ms", [])
+    host = call.get("replay_host_ms", [])
+    return {"B": call["B"], "k": call["k"],
+            "max_iterations": call["max_iterations"], "replays": len(device),
+            "device_ms_per_step": (round(_median(device) / m, 5)
+                                   if device else None),
+            "host_ms_per_step": (round(_median(host) / m, 5)
+                                 if host else None)}
 
 
 def _nm_summary(calls):
@@ -3251,27 +3413,250 @@ def _cloud(result):
             for key in ("position", "normal", "vis")}
 
 
-def _nm_line(label, result, launches, wall, calls):
+def _nm_line(label, result, launches, wall, calls, extra=None):
     row = {"cli_wall_s": round(wall, 3),
            "stage_s": {k: round(result.metrics.times[k], 4)
                        for k in ("seed_optimize", "expand")},
            "k1_launches": launches["allview_ncc"],
-           **_nm_counters(result.metrics), **_nm_summary(calls)}
+           **{name: launches[name] for name in NM_KERNELS
+              if name in launches},
+           **_nm_counters(result.metrics), **_nm_summary(calls),
+           **(extra or {})}
     print(f"[nm-graph] {label}: {json.dumps(row)}", flush=True)
     return row
 
 
+# Step kernels vs their plain twins on the same inputs: sorts, branch
+# picks, `done`, `iters`, the step and the flag exactly; f32 values within
+# NM_F32_RTOL, relative above magnitude 1 (DTU positions lie ~700 mm from
+# the origin, where an f32 ulp is 6e-5). The twins sum the payload views
+# and rotate the normal in another order, so a branch test whose operands
+# lie within NM_NEAR of each other may go either way: such lanes are
+# counted as branched apart, and compared no further in that step.
+NM_F32_RTOL = 1e-6
+NM_NEAR = 1e-6
+
+
+def _rel_err(got, want):
+    """Largest |got - want|, relative where |want| > 1 (0 if empty)."""
+    if not want.numel():
+        return 0.0
+    return float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+
+
+def _nm_counts(name, B, V, P):
+    """(bytes, f32 operations) a step kernel's function needs for B lanes
+    of V views with P payload entries in all: each input it needs read
+    once, each output written once; of the grid only the payload views'
+    scores. Per lane: nm_reflect reads the 4 vertices and f-values and the
+    pose (100 B) and writes the sorted ones, the centroid, x_r and its pose
+    (112 B), with 56 operations (5 comparisons, 18 for the centroid and
+    x_r, 33 for the pose, a cosine or sine counted as one); nm_contract
+    reads the payload flags, the count, the worst vertex, two f-values,
+    the centroid, x_r and the pose (88 B) and writes f_r, x_2 and its pose
+    (40 B), with 2 operations per payload score and 45; nm_accept reads the
+    flags, the count, the 4 f-values, done, iters, x_r, f_r and x_2 (57 B)
+    and writes the worst vertex, its f-value, done and iters (21 B), with 2
+    per payload score and 14, and once the step (16 B) and the flag."""
+    lane, ops = {"nm_reflect": (212, 56), "nm_contract": (V + 128, 45),
+                 "nm_accept": (V + 78, 14)}[name]
+    scores = 0 if name == "nm_reflect" else P
+    extra = 17 if name == "nm_accept" else 0
+    return B * lane + 4 * scores + extra, B * ops + 2 * scores
+
+
+def _nm_kernel_check(label, inputs):
+    """The three step kernels against their plain twins along one solver
+    call's trajectory on the card. From the call's initial simplex each
+    step runs every twin and every kernel on the same inputs (a kernel's
+    inputs are its twins' outputs before it), compares them, and goes on
+    from the kernels' state, to the call's cap or until every lane is done;
+    then each kernel's time back to back and its twin's, at the initial
+    simplex, beside the bound. Returns ({kernel: record}, lanes that
+    branched apart, steps)."""
+    import torch
+
+    from densepoints_tpu_torch.scripts import _timing
+
+    nm = _nm_step()
+    f, x0, args, kwargs = inputs
+    init_step = args[0]
+    max_iterations, tolerance = kwargs["max_iterations"], kwargs["tolerance"]
+    B, D = x0.shape
+    V = f.vis.shape[1]
+    dev = x0.device
+    offsets = torch.cat([x0.new_zeros((1, D)), torch.diag(init_step.to(x0))])
+    verts = (x0[:, None, :] + offsets[None]).contiguous()
+    start = (verts, f(verts), torch.zeros(B, dtype=torch.bool, device=dev),
+             torch.zeros(B, dtype=torch.int32, device=dev),
+             torch.zeros((), dtype=torch.int64, device=dev))
+    pose = tuple(t.contiguous() for t in (f.position0, f.normal0, f.C_ref))
+    payload, n_payload = f.payload.contiguous(), f.n_payload.contiguous()
+    limits = (max_iterations, tolerance)
+
+    def score(pos, nrm):
+        return f.score(pos, nrm, f.ref, f.vis)[0]
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    def reflect(verts, fvals):
+        out = [verts.clone(), fvals.clone()] + [empty(B, 3) for _ in range(4)]
+        return out, lambda: nm.nm_reflect(*out[:2], *pose, *out[2:])
+
+    def contract(scores, sv, sf, c, xr):
+        out = [empty(B)] + [empty(B, 3) for _ in range(3)]
+        return out, lambda: nm.nm_contract(scores, payload, n_payload, sv,
+                                           sf, c, xr, *pose, *out)
+
+    def accept(scores, state, xr, f_r, x_2):
+        out = [t.clone() for t in state] + [
+            torch.zeros((), dtype=torch.bool, device=dev),
+            torch.zeros(2, dtype=torch.int32, device=dev)]
+        return out, lambda: nm.nm_accept(scores, payload, n_payload,
+                                         *out[:5], xr, f_r, x_2, *limits,
+                                         *out[5:])
+
+    def fail(what):
+        raise SmokeFailure(f"[nm-step] {label} step {steps}: {what}")
+
+    errs = {}  # "kernel.output" -> the largest error over the steps
+
+    def note(name, outputs, gots, wants):
+        for output, got, want in zip(outputs.split(), gots, wants):
+            key = f"{name}.{output}"
+            errs[key] = max(errs.get(key, 0.0), _rel_err(got, want))
+
+    apart = steps = 0
+    state = start
+    for steps in range(1, max_iterations + 1):
+        want = nm.nm_reflect_plain(*state[:2], *pose)
+        got, launch = reflect(*state[:2])
+        launch()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail("nm_reflect sorted otherwise than its twin")
+        # The pose against the twin's pose of the kernel's own x_r: an ulp
+        # of x_r at a large angle moves cos and sin by as much.
+        note("nm_reflect", "centroid x_r position normal", got[2:],
+             (*want[2:4], *nm._pose(got[3], *pose)))
+        sv, sf, c, xr, pos, nrm = want
+        scores = score(pos, nrm)
+        wc = nm.nm_contract_plain(scores, payload, n_payload, sv, sf, c, xr,
+                                  *pose)
+        gc, launch = contract(scores, sv, sf, c, xr)
+        launch()
+        f_r = wc[0]
+        note("nm_contract", "f_r", gc[:1], wc[:1])
+        split = torch.zeros(B, dtype=torch.bool, device=dev)
+        for threshold in (sf[:, 0], sf[:, -1]):  # expansion, outside
+            differ = (gc[0] < threshold) != (f_r < threshold)
+            if bool((differ & ((f_r - threshold).abs() >= NM_NEAR)).any()):
+                fail("nm_contract picked another branch than its twin")
+            split |= differ
+        note("nm_contract", "x_2 position normal",
+             (g[~split] for g in gc[1:]),
+             (w[~split] for w in (wc[1], *nm._pose(gc[1], *pose))))
+        scores = score(wc[2], wc[3])
+        wa = nm.nm_accept_plain(scores, payload, n_payload, sv, sf,
+                                *state[2:], xr, f_r, wc[1], *limits)
+        ga, launch = accept(scores, (sv, sf, *state[2:]), xr, f_r, wc[1])
+        launch()
+        f_2 = nm._cost(scores, payload, n_payload)
+        use_2 = torch.where(f_r < sf[:, 0], f_2 < f_r,
+                            (f_r >= sf[:, -2]) & (f_2 < f_r))
+        f_new = torch.where(use_2, f_2, f_r)
+        spread = wa[1].max(dim=1).values - wa[1].min(dim=1).values
+        near = (((f_2 - f_r).abs() < NM_NEAR)
+                | ((f_new - sf[:, -1]).abs() < NM_NEAR)
+                | ((spread - tolerance).abs() < NM_NEAR))
+        if not (torch.equal(ga[3], wa[3]) and torch.equal(ga[4], wa[4])):
+            fail("nm_accept's iters or step differ from its twin's")
+        if not torch.equal(ga[2][~near], wa[2][~near]):
+            fail("nm_accept's done differs from its twin's")
+        if bool(ga[6].any()):
+            fail("nm_accept left its counters set")
+        done_apart = ga[2] != wa[2]
+        if not bool(done_apart.any()) and not torch.equal(ga[5], wa[5]):
+            fail("nm_accept's exit flag differs from its twin's")
+        note("nm_accept", "verts fvals", (g[~near] for g in ga[:2]),
+             (w[~near] for w in wa[:2]))
+        moved = (ga[0] != wa[0]).flatten(1).any(1) | done_apart
+        apart += int((split | (near & moved)).sum())
+        state = tuple(ga[:5])
+        if bool(ga[5]):
+            break
+    err = {name: max(e for key, e in errs.items()
+                     if key.startswith(name + "."))
+           for name in NM_KERNELS}
+    print(f"[nm-step] {label}: largest error by output over {steps} steps "
+          f"{json.dumps(errs)}", flush=True)
+    for name, e in err.items():
+        check(e <= NM_F32_RTOL, f"[nm-step] {label}: {name} {e:.3e} from its "
+              f"twin (limit {NM_F32_RTOL:g})")
+
+    # Times at the initial simplex: each kernel alone back to back (on
+    # buffers of its own) and its twin call by call.
+    verts, fvals = start[:2]
+    sv, sf, c, xr, pos, nrm = nm.nm_reflect_plain(verts, fvals, *pose)
+    scores_r = score(pos, nrm)
+    wc = nm.nm_contract_plain(scores_r, payload, n_payload, sv, sf, c, xr,
+                              *pose)
+    scores_2 = score(wc[2], wc[3])
+    runs = {
+        "nm_reflect": (reflect(verts, fvals)[1],
+                       lambda: nm.nm_reflect_plain(verts, fvals, *pose)),
+        "nm_contract": (contract(scores_r, sv, sf, c, xr)[1],
+                        lambda: nm.nm_contract_plain(
+                            scores_r, payload, n_payload, sv, sf, c, xr,
+                            *pose)),
+        "nm_accept": (accept(scores_2, (sv, sf, *start[2:]), xr, wc[0],
+                             wc[1])[1],
+                      lambda: nm.nm_accept_plain(
+                          scores_2, payload, n_payload, sv, sf, *start[2:],
+                          xr, wc[0], wc[1], *limits)),
+    }
+    P = int(n_payload.sum())
+    records = {}
+    for name, (kernel, plain) in runs.items():
+        ms = _time_runs({"kernel": kernel, "plain": plain})
+        bound = _timing.bound(*_nm_counts(name, B, V, P))
+        records[name] = dict(_result(err[name], ms, bound), B=B, V=V)
+        print(f"[nm-step] {name} {label}: B={B} V={V} payload={P} "
+              f"max_rel_err={err[name]:.3e} kernel_ms={ms['kernel']:.5f} "
+              f"plain_ms={ms['plain']:.4f} bound_ms={bound[0]:.6f} "
+              f"({bound[1]})", flush=True)
+    print(f"[nm-step] {label}: {steps} steps of B={B} compared, {apart} "
+          f"lane-steps branched apart (a test within {NM_NEAR:g} of its "
+          "threshold)", flush=True)
+    return records, apart, steps
+
+
+def _first_expand(calls):
+    """The sphere's first expansion call (the first of the expansion's
+    iteration cap)."""
+    cap = SPHERE_SETTINGS["expand"]["max_iterations"]
+    return next(c for c in calls if c["max_iterations"] == cap)
+
+
 def phase_nm_graph(device, main_result):
-    """Phase 16 (after phase 10): Nelder-Mead as captured CUDA graphs.
+    """Phase 16 (after phase 10): Nelder-Mead as captured CUDA graphs of
+    the step kernels (`ops.nm_step`: five launches a step, K1 twice).
     Phase 10's run captured and replayed graphs; the eager witness (the
-    same blocks run eagerly) gives its cloud bitwise; so does every block
-    size m of `NM_BLOCKS`, each a row of the table (CLI wall, stage seconds,
-    K1 launches, captures, replays, steps, solver calls, distinct (B, k)
-    shapes, iterations, host ms per iteration); m = 1 launches K1 exactly
-    as often as the per-iteration loop (the witness at m = 1), the default
-    m at most 2 (m - 1) more times per call; and under `torch.profiler`
-    the device runs as many K1 kernels as the counter says, K1 named.
-    Returns the table."""
+    same kernel steps run eagerly) gives its cloud bitwise; so does every
+    block size m of `NM_BLOCKS`, each a row of the table (CLI wall, stage
+    seconds, K1 and step-kernel launches, captures, replays, steps, solver
+    calls, distinct (B, k) shapes, iterations, host ms per iteration, and
+    the first expansion call's step: device ms by CUDA events around a
+    replay, host ms from one replay to the next); m = 1 launches K1
+    exactly as often as the per-iteration loop (the witness at m = 1), the
+    default m at most 2 (m - 1) more times per call. The torch step (the
+    objective handed in as a plain callable) makes the same cloud within
+    2% of the count and the radial error's gate, its K1 launches stated
+    beside the kernel step's. The step kernels are held against their
+    twins along the first expansion call's trajectory (`_nm_kernel_check`)
+    and timed. Under `torch.profiler` the device runs as many K1 and step
+    kernels as the counters say, each named. Returns the step kernels'
+    records ({kernel: {"sphere_expand1": record}})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3284,20 +3669,38 @@ def phase_nm_graph(device, main_result):
           and main_counts["nm_graph_replays"] > 0,
           "[nm-graph] the main path captured or replayed no graph")
     want = _cloud(main_result)
-    table = {}
-    runs = [("eager witness", {"_eager": True}),
-            ("eager witness m=1", {"_eager": True, "_block_steps": 1})]
-    runs += [(f"m={m}", {"_block_steps": m}) for m in NM_BLOCKS]
+    table, inputs = {}, None
+    m = simplex._BLOCK
+    runs = [("eager witness m=1", {"_eager": True, "_block_steps": 1})]
+    if m != 1:
+        runs.append(("eager witness", {"_eager": True}))
+    runs += [(f"m={b}", {"_block_steps": b, "step_times": True})
+             for b in NM_BLOCKS]
+    runs.append(("torch step", {"torch_step": True, "step_times": True,
+                                "_block_steps": 1}))
     for label, kwargs in runs:
         rows = []
         for _ in range(NM_REPEATS):
-            with _nm_recorded(**kwargs) as calls:
+            keep = inputs is None and label == "m=1"
+            with _nm_recorded(keep_inputs=keep, **kwargs) as calls:
                 pts, result, wall, launches, _ = _cli_on_sphere(
                     device, SPHERE_SETTINGS)
-            _bitwise(f"[nm-graph] {label}", _cloud(result), want)
-            rows.append(_nm_line(label, result, launches, wall, calls))
+            if label == "torch step":
+                n, n_want = len(pts), len(want["position"])
+                check(abs(n - n_want) <= 0.02 * n_want,
+                      f"[nm-graph] the torch step made {n} patches, the "
+                      f"kernel step {n_want}")
+            else:
+                _bitwise(f"[nm-graph] {label}", _cloud(result), want)
+            split = ({"first_expand_step": _step_split(
+                _first_expand(calls), kwargs.get("_block_steps", m))}
+                if kwargs.get("step_times") else {})
+            rows.append(_nm_line(label, result, launches, wall, calls,
+                                 split))
+            if keep:
+                inputs = _first_expand(calls)["inputs"]
         rows.sort(key=lambda row: row["host_ms_per_iteration"])
-        table[label] = dict(rows[len(rows) // 2],
+        table[label] = dict(rows[len(rows) // 2], patches=len(pts),
                             median_radial_error=_radial_error(pts))
         spread = [row["host_ms_per_iteration"] for row in rows]
         print(f"[nm-graph] {label}: host ms per iteration min / median / "
@@ -3307,7 +3710,6 @@ def phase_nm_graph(device, main_result):
     check(table["m=1"]["k1_launches"] == per_iteration["k1_launches"],
           f"[nm-graph] m = 1 launched K1 {table['m=1']['k1_launches']} "
           f"times, the per-iteration loop {per_iteration['k1_launches']}")
-    m = simplex._BLOCK
     extra = table[f"m={m}"]["k1_launches"] - per_iteration["k1_launches"]
     limit = 2 * (m - 1) * per_iteration["calls"]
     print(f"[nm-graph] m = {m}: {extra} K1 launches over the per-iteration "
@@ -3320,21 +3722,43 @@ def phase_nm_graph(device, main_result):
         if label.startswith("m="):
             check(table[label]["nm_graph_captures"] > 0,
                   f"[nm-graph] {label} captured no graph")
+    kernel, torch_step = table["m=1"], table["torch step"]
+    check(torch_step["median_radial_error"] < 0.01 * SPHERE_RADIUS,
+          f"[nm-graph] the torch step's radial error "
+          f"{torch_step['median_radial_error']}")
+    check(torch_step["nm_reflect"] == 0,
+          "[nm-graph] the torch step launched step kernels")
+    check(kernel["nm_reflect"] == kernel["nm_contract"]
+          == kernel["nm_accept"] == kernel["nm_steps"] > 0,
+          "[nm-graph] the kernel step did not launch each step kernel once "
+          "a step")
+    print(f"[nm-graph] kernel step against torch step (m = 1, medians): "
+          f"patches {kernel['patches']} / {torch_step['patches']}, median "
+          f"radial error {kernel['median_radial_error']:.7f} / "
+          f"{torch_step['median_radial_error']:.7f}, K1 launches "
+          f"{kernel['k1_launches']} / {torch_step['k1_launches']} (difference "
+          f"{kernel['k1_launches'] - torch_step['k1_launches']}), first "
+          f"expansion call's step {json.dumps(kernel['first_expand_step'])} "
+          f"/ {json.dumps(torch_step['first_expand_step'])}", flush=True)
+    records, apart, steps = _nm_kernel_check("sphere_expand1", inputs)
+    del inputs
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, result, _, launches, _ = _cli_on_sphere(device, SPHERE_SETTINGS)
         torch.cuda.synchronize()
-    events = sum(e.count for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "allview_ncc_kernel" in e.key)
-    print(f"[nm-graph] profiled: allview_ncc_kernel named in {events} device "
-          f"events; counter {launches['allview_ncc']}; "
-          f"{json.dumps(_nm_counters(result.metrics))}", flush=True)
-    check(events == launches["allview_ncc"] > 0,
-          f"[nm-graph] the profile shows {events} K1 kernels, the counter "
-          f"{launches['allview_ncc']}")
-    return table
+    for name in ("allview_ncc", *NM_KERNELS):
+        events = sum(e.count for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and f"{name}_kernel" in e.key)
+        print(f"[nm-graph] profiled: {name}_kernel named in {events} device "
+              f"events; counter {launches[name]}", flush=True)
+        check(events == launches[name] > 0,
+              f"[nm-graph] the profile shows {events} {name} kernels, the "
+              f"counter {launches[name]}")
+    print(f"[nm-graph] profiled: {json.dumps(_nm_counters(result.metrics))}",
+          flush=True)
+    return {name: {"sphere_expand1": rec} for name, rec in records.items()}
 
 
 def time_window(device):
@@ -3619,13 +4043,15 @@ def main() -> int:
         # row-wise kernels are counted on the slot-scoring path, the two
         # window kernels on the ablation path above.
         phase_seed_variants("cuda")
-        (launches["allview_ncc"], main_times, main_pts,
+        (main_launches, main_times, main_pts,
          main_patches, main_result) = phase_main_path("cuda")
-        phase_nm_graph("cuda", main_result)
+        for name in ("allview_ncc", *NM_KERNELS):
+            launches[name] = main_launches[name]
+        results.update(phase_nm_graph("cuda", main_result))
         ba_turned = phase_rest_of_pipeline("cuda", main_pts, main_times,
                                            main_patches)
         parallel = phase_parallel("cuda", main_patches, ba_turned)
-        dtu = phase_dtu("cuda")
+        dtu = phase_dtu("cuda", results)
         phase_measure("cuda")
         bench = phase_bench("cuda")
     except SmokeFailure as exc:
@@ -3657,9 +4083,9 @@ def main() -> int:
                 "launches_entry": bench["entry"]}
                if kernel == "allview_ncc" else {}),
             # No single PyTorch call computes a projective warp + NCC, a
-            # clamped row-wise NCC, or window-relative sampling with zeros
+            # clamped row-wise NCC, window-relative sampling with zeros
             # outside the window (`grid_sample` clamps or pads by image,
-            # takes no per-slot window and no NCC).
+            # takes no per-slot window and no NCC), or a Nelder-Mead step.
             "library_ms": None,
         })
     print(smi_line, flush=True)

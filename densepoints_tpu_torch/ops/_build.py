@@ -9,7 +9,9 @@ bound with ctypes; `launch` sets the argument types (pointers and the
 stream as `c_void_p`, or ctypes would cut them to 32 bits).
 `count_launch` keeps a wrapper's launch counter true under CUDA graphs: a
 launch made while a graph is captured runs nothing and is recorded, and
-`count_replay` adds the recorded launches at each replay.
+`count_replay` adds the recorded launches at each replay. A counter is
+named "module" (its `KERNEL_LAUNCHES`) or "module:NAME" (a module of
+several kernels).
 """
 from __future__ import annotations
 
@@ -26,10 +28,11 @@ from pathlib import Path
 __all__ = [
     "build_library", "check_tensor", "check_warp_scene", "launch",
     "count_launch", "take_recorded", "count_replay",
-    "VOID_P", "INT64", "INT",
+    "VOID_P", "INT64", "INT", "FLOAT",
 ]
 
 VOID_P, INT64, INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+FLOAT = ctypes.c_float
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -40,8 +43,8 @@ _NVCC_FLAGS = (
 _lock = threading.Lock()
 _lib = None
 _bound: dict[str, object] = {}
-# Launches recorded by the CUDA graph under capture, by the module whose
-# `KERNEL_LAUNCHES` counts them.
+# Launches recorded by the CUDA graph under capture, by the counter that
+# counts them ("module" or "module:NAME").
 _recorded: dict[str, int] = {}
 
 
@@ -215,22 +218,31 @@ def launch(name: str, argtypes, device, *args):
         raise RuntimeError(f"{name} failed: CUDA error {err}")
 
 
-def count_launch(module: str):
-    """Count one launch of a kernel on `module`'s `KERNEL_LAUNCHES`, or,
-    while the current stream captures a CUDA graph, record it for the
-    graph's replays (a capture launches nothing)."""
+def _add(counter: str, n: int):
     import sys
 
+    module, _, name = counter.partition(":")
+    name = name or "KERNEL_LAUNCHES"
+    setattr(sys.modules[module], name,
+            getattr(sys.modules[module], name) + n)
+
+
+def count_launch(counter: str):
+    """Count one launch of a kernel on `counter` ("module": its
+    `KERNEL_LAUNCHES`; "module:NAME": its `NAME`), or, while the current
+    stream captures a CUDA graph, record it for the graph's replays (a
+    capture launches nothing)."""
     import torch
 
     if torch.cuda.is_current_stream_capturing():
-        _recorded[module] = _recorded.get(module, 0) + 1
+        _recorded[counter] = _recorded.get(counter, 0) + 1
     else:
-        sys.modules[module].KERNEL_LAUNCHES += 1
+        _add(counter, 1)
 
 
 def take_recorded() -> dict[str, int]:
-    """The launches recorded since the last call, by module; clears them."""
+    """The launches recorded since the last call, by counter; clears
+    them."""
     out = dict(_recorded)
     _recorded.clear()
     return out
@@ -238,7 +250,5 @@ def take_recorded() -> dict[str, int]:
 
 def count_replay(recorded: dict[str, int]):
     """Count one replay of a graph that recorded `recorded`."""
-    import sys
-
-    for module, n in recorded.items():
-        sys.modules[module].KERNEL_LAUNCHES += n
+    for counter, n in recorded.items():
+        _add(counter, n)

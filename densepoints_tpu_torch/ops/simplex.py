@@ -17,12 +17,20 @@ which leaves `argmin`'s pick unchanged. Blocks of any size therefore give
 the result of the per-iteration loop bitwise; a block of m steps may
 evaluate the objective up to 2 (m - 1) more times, on frozen lanes.
 
+A step of the photometric objective (an `ops.nm_step.StepObjective`) is
+`ops.nm_step.KernelStep`: on a CUDA device five launches (three kernels of
+`csrc/nm_step.cu` and the scoring kernel twice) that update the state in
+place and write the exit flag on the device, the counterpart of XLA's
+fusions of the JAX package's loop body; on the CPU the kernels' plain twins,
+which give `_step` bitwise. Any other objective callable takes `_step`.
+
 On the CPU the blocks run eagerly. On a CUDA device the first block runs
 eagerly (real iterations, and the warm-up a capture needs), the next one
 is captured as a CUDA graph in a memory pool of its own, and the host only
 replays it until the device's exit flag says stop: the counterpart of the
 JAX package's one XLA program per slice. A capture that fails raises; there
-is no eager retry on the card.
+is no eager retry on the card, and no fallback from the kernel step to
+`_step`.
 
 With a `mesh`, each rank holds a row block of the batch and the exit is one
 `all_reduce` of the flag per block, outside the graph: every rank runs
@@ -36,18 +44,18 @@ from typing import Callable
 
 import torch
 
-from densepoints_tpu_torch.ops import _build
+from densepoints_tpu_torch.ops import _build, nm_step
 
 __all__ = ["nelder_mead", "counts", "count_since"]
 
-_ALPHA = 1.0  # reflection
-_GAMMA = 2.0  # expansion
-_RHO = 0.5  # contraction
+_ALPHA, _GAMMA, _RHO = nm_step.ALPHA, nm_step.GAMMA, nm_step.RHO
 # Steps per block: per captured graph on the card, per exit read anywhere.
-# 1 took the least host time per iteration of 1, 2, 4 and 8 on an H100
-# (`chip_smoke.py --nm-graph`, PERF.md): a block's eager run and capture
-# cost host time in proportion to its steps, a replay little.
-_BLOCK = 1
+# With the step kernels (five launches a step) 2 took the least host time
+# per iteration of 1, 2, 4 and 8 on an H100 (`chip_smoke.py --nm-graph`,
+# PERF.md): a replay of one step costs little more than its exit read, and
+# a block's eager run and capture cost host time in proportion to its
+# steps.
+_BLOCK = 2
 
 # One side stream per card for every call: a new stream would cost a new
 # cuBLAS workspace (32 MiB on Hopper, kept for the process's life).
@@ -59,9 +67,13 @@ STEPS = 0  # steps run on the device, eager or replayed, frozen lanes or not
 
 
 def counts() -> dict:
-    """The solver's counters, under the names `StageMetrics` reports."""
+    """The solver's counters, under the names `StageMetrics` reports;
+    `nm_kernel_launches` counts the three step kernels' device launches
+    together (under a graph, at each replay)."""
     return {"nm_graph_captures": GRAPH_CAPTURES,
-            "nm_graph_replays": GRAPH_REPLAYS, "nm_steps": STEPS}
+            "nm_graph_replays": GRAPH_REPLAYS, "nm_steps": STEPS,
+            "nm_kernel_launches": nm_step.REFLECT_LAUNCHES
+            + nm_step.CONTRACT_LAUNCHES + nm_step.ACCEPT_LAUNCHES}
 
 
 def count_since(metrics, before: dict):
@@ -71,7 +83,8 @@ def count_since(metrics, before: dict):
 
     for name, value in counts().items():
         metrics.count(name, value - before[name])
-    log.info("[nm-graph] captures=%d replays=%d steps=%d",
+    log.info("[nm-graph] captures=%d replays=%d steps=%d "
+             "kernel_launches=%d",
              *(metrics.counters[name] for name in before))
 
 
@@ -118,12 +131,27 @@ def _step(f, verts, fvals, done, iters, step, max_iterations, tolerance):
     return verts, fvals, done, iters, step + 1
 
 
-def _block(f, state, m, max_iterations, tolerance):
-    """`m` steps from `state`; returns the new state and its exit flag."""
+class _TorchStep:
+    """`_step` of any objective callable; the exit flag from the state."""
+
+    def __init__(self, f):
+        self.f = f
+
+    def __call__(self, *state_and_limits):
+        return _step(self.f, *state_and_limits)
+
+    @staticmethod
+    def exit_flag(state, max_iterations):
+        _, _, done, _, step = state
+        return done.all() | (step >= max_iterations)
+
+
+def _block(advance, state, m, max_iterations, tolerance):
+    """`m` steps of `advance` (a `_TorchStep` or an `nm_step.KernelStep`)
+    from `state`; returns the new state and its exit flag."""
     for _ in range(m):
-        state = _step(f, *state, max_iterations, tolerance)
-    _, _, done, _, step = state
-    return state, done.all() | (step >= max_iterations)
+        state = advance(*state, max_iterations, tolerance)
+    return state, advance.exit_flag(state, max_iterations)
 
 
 def _finished(flag, mesh) -> bool:
@@ -135,19 +163,19 @@ def _finished(flag, mesh) -> bool:
     return all_true(mesh, flag)
 
 
-def _run_eager(f, state, m, max_iterations, tolerance, mesh):
+def _run_eager(advance, state, m, max_iterations, tolerance, mesh):
     """Blocks of `m` steps run eagerly, the exit read after each."""
     global STEPS
     while True:
-        state, flag = _block(f, state, m, max_iterations, tolerance)
+        state, flag = _block(advance, state, m, max_iterations, tolerance)
         STEPS += m
         if _finished(flag, mesh):
             return state
 
 
-def _capture(f, state, m, max_iterations, tolerance):
+def _capture(advance, state, m, max_iterations, tolerance):
     """One block captured as a CUDA graph (in a pool of its own) that
-    advances `state` in place; returns (graph, exit flag, K1 launches
+    advances `state` in place; returns (graph, exit flag, kernel launches
     recorded per replay). Raises, naming the cause, if capture fails."""
     global GRAPH_CAPTURES
     graph = torch.cuda.CUDAGraph()
@@ -156,9 +184,10 @@ def _capture(f, state, m, max_iterations, tolerance):
     # while this thread captures.
     graph.capture_begin(capture_error_mode="thread_local")
     try:
-        out, flag = _block(f, state, m, max_iterations, tolerance)
+        out, flag = _block(advance, state, m, max_iterations, tolerance)
         for dst, src in zip(state, out):
-            dst.copy_(src)
+            if dst is not src:  # the kernel step updates in place
+                dst.copy_(src)
     except Exception as exc:
         with contextlib.suppress(Exception):
             graph.capture_end()
@@ -174,7 +203,7 @@ def _capture(f, state, m, max_iterations, tolerance):
     return graph, flag, _build.take_recorded()
 
 
-def _run_graph(f, state, m, max_iterations, tolerance, mesh):
+def _run_graph(advance, state, m, max_iterations, tolerance, mesh):
     """The first block eagerly, then a captured block replayed until the
     exit flag is set. Everything runs on a side stream (a graph cannot be
     captured on the default stream; the eager block warms that stream's
@@ -189,11 +218,11 @@ def _run_graph(f, state, m, max_iterations, tolerance, mesh):
     for t in state:
         t.record_stream(stream)
     with torch.cuda.stream(stream):
-        state, flag = _block(f, state, m, max_iterations, tolerance)
+        state, flag = _block(advance, state, m, max_iterations, tolerance)
         STEPS += m
         if not _finished(flag, mesh):
-            graph, flag, recorded = _capture(f, state, m, max_iterations,
-                                             tolerance)
+            graph, flag, recorded = _capture(advance, state, m,
+                                             max_iterations, tolerance)
             while True:
                 graph.replay()
                 GRAPH_REPLAYS += 1
@@ -223,8 +252,9 @@ def nelder_mead(
 
     f: (B, K, D) -> (B, K) batched objective; lane b always refers to the
       same problem instance. On a CUDA device f is captured into a graph:
-      it must not read a device value on the host. x0: (B, D);
-      init_step: (D,).
+      it must not read a device value on the host. An
+      `nm_step.StepObjective` (D = 3) steps through `nm_step.KernelStep`,
+      any other callable through `_step`. x0: (B, D); init_step: (D,).
     mesh: a `parallel.mesh.Mesh` when x0 is this rank's row block of a
       batch split over ranks; the early exit then waits for every rank.
     `_eager` runs the eager blocks on a CUDA device too (the witness the
@@ -253,9 +283,13 @@ def nelder_mead(
         torch.zeros((), dtype=torch.int64, device=dev),  # step
     )
     if max_iterations > 0:
+        advance = (nm_step.KernelStep(f, verts)
+                   if isinstance(f, nm_step.StepObjective)
+                   else _TorchStep(f))
         run = (_run_graph if dev.type == "cuda" and not _eager
                else _run_eager)
-        state = run(f, state, _block_steps, max_iterations, tolerance, mesh)
+        state = run(advance, state, _block_steps, max_iterations, tolerance,
+                    mesh)
     verts, fvals, _, iters, _ = state
     ib = torch.argmin(fvals, dim=1)
     x_best = torch.take_along_dim(verts, ib[:, None, None], dim=1)[:, 0, :]

@@ -34,6 +34,7 @@ from densepoints_tpu_torch.ops.allview_ncc import (
     allview_scores,
 )
 from densepoints_tpu_torch.ops.ncc import ncc_pairs
+from densepoints_tpu_torch.ops.nm_step import StepObjective, cost
 from densepoints_tpu_torch.ops.simplex import nelder_mead
 from densepoints_tpu_torch.ops.warp import compact_visible
 from densepoints_tpu_torch.ops.warp_ncc import (
@@ -49,6 +50,7 @@ __all__ = [
     "patch_ncc_scores",
     "photometric_objective",
     "photometric_objective_paged",
+    "PhotometricObjective",
     "filter_by_error",
     "filter_by_error_once",
     "optimize_patches",
@@ -225,6 +227,35 @@ def _payload(vis: torch.Tensor) -> torch.Tensor:
     return vis & (cols[None, :] != anchor[:, None])
 
 
+class PhotometricObjective(StepObjective):
+    """The all-views objective's call, f(params (B, K, 3)) -> (B, K), on
+    its parts (`StepObjective`'s fields, made once per objective): the K
+    candidate points of every lane are scored in ONE scoring pass over
+    B * K rows (rows are independent, so this equals K passes), with the
+    (B * K)-row ref and vis made at the first call with each K. So a call
+    runs no host read and builds no tensor on the host, and Nelder-Mead can
+    capture it in a CUDA graph; the solver's steps take the parts instead
+    (`ops.nm_step.KernelStep`)."""
+
+    def __init__(self, *parts):
+        super().__init__(*parts)
+        self.rows = {}  # K -> (ref, vis) repeated K times per lane
+
+    def __call__(self, params: torch.Tensor) -> torch.Tensor:
+        B, K, _ = params.shape
+        if K not in self.rows:
+            self.rows[K] = (self.ref.repeat_interleave(K),
+                            self.vis.repeat_interleave(K, dim=0))
+        pos, nrm = unparametrize(
+            params, self.position0[:, None, :], self.normal0[:, None, :],
+            self.C_ref[:, None, :],
+        )
+        scores, _, _ = self.score(
+            pos.reshape(B * K, 3), nrm.reshape(B * K, 3), *self.rows[K]
+        )
+        return cost(scores, self.payload, self.n_payload, K)
+
+
 def photometric_objective_paged(
     images: torch.Tensor,
     cameras: Cameras,
@@ -233,40 +264,16 @@ def photometric_objective_paged(
     ref: torch.Tensor,
     vis: torch.Tensor,
     texture_size: int,
-):
-    """All-views batched objective f(params (B, K, 3)) -> (B, K).
-
-    The K candidate points of every lane are scored in ONE scoring pass
-    over B * K rows (rows are independent, so this equals K passes).
-    What a call never changes is made once: the cameras for the kernel,
-    and the (B * K)-row ref and vis at the first call with each K. So `f`
-    runs no host read and builds no tensor on the host, and Nelder-Mead can
-    capture it in a CUDA graph."""
+) -> PhotometricObjective:
+    """All-views batched objective f(params (B, K, 3)) -> (B, K), with its
+    parts: the cameras for the kernel are bound once, and the payload
+    views and their count made once."""
     payload = _payload(vis)
-    n_payload = payload.sum(dim=1)[:, None]
-    C_ref = cameras.C[ref][:, None, :]
-    score = allview_scorer(images, cameras, texture_size)
-    ref = ref.to(torch.int64)
-    rows = {}  # K -> (ref, vis) repeated K times per lane
-
-    def f(params: torch.Tensor) -> torch.Tensor:
-        B, K, _ = params.shape
-        if K not in rows:
-            rows[K] = (ref.repeat_interleave(K),
-                       vis.repeat_interleave(K, dim=0))
-        pos, nrm = unparametrize(
-            params, position0[:, None, :], normal0[:, None, :], C_ref
-        )
-        scores, _, _ = score(
-            pos.reshape(B * K, 3), nrm.reshape(B * K, 3), *rows[K]
-        )
-        err = torch.where(
-            payload[:, None, :], 1.0 - scores.reshape(B, K, -1), 0.0
-        ).sum(dim=2)
-        return torch.where(n_payload > 0,
-                           err / torch.clamp_min(n_payload, 1), 2.0)
-
-    return f
+    return PhotometricObjective(
+        position0, normal0, cameras.C[ref], ref.to(torch.int64), vis,
+        payload, payload.sum(dim=1),
+        allview_scorer(images, cameras, texture_size),
+    )
 
 
 def _sliced(fn, images, cameras, state: PatchState, texture_size, config,

@@ -125,13 +125,15 @@ def test_scaling_overhead_matches_jax():
     final = want.patches.capacity
     assert final > 50
     assert abs(record["patches"] - final) <= COUNT_RTOL * final
-    # The JAX counters, and the port's five more: the collectives' calls
+    # The JAX counters, and the port's six more: the collectives' calls
     # and seconds (`MeshTraffic`), and the solver's captured CUDA graphs,
-    # their replays and its steps (`ops.simplex.counts`).
+    # their replays, its steps and its step kernels' launches
+    # (`ops.simplex.counts`).
     extra = set(record["counters"]) - set(want.metrics.counters)
     assert set(want.metrics.counters) <= set(record["counters"])
     assert extra == {"overhead_collective_calls", "overhead_collective_s",
-                     "nm_graph_captures", "nm_graph_replays", "nm_steps"}
+                     "nm_graph_captures", "nm_graph_replays", "nm_steps",
+                     "nm_kernel_launches"}
     assert record["mesh_ranks"] == 1
     assert record["model"]["link_bytes_per_s"] == 12.5e9
     assert record["model"]["per_round"]["device_seconds"] > 0
