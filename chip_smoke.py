@@ -2865,9 +2865,8 @@ def phase_bench(device):
                        for k in ("min", "median", "max"))
           + f"; K1 {rec['kernel_ms_per_pass']:.5f} ms b2b, bound "
           f"{rec['kernel_bound_ms']:.5f} ({rec['kernel_bound_by']}), share "
-          f"{rec['kernel_bound_share']:.3f}; device busy "
-          f"{rec['device_busy_share']:.4f} of a warm run; median radial "
-          f"error {rec['median_radial_error']:.4f}", flush=True)
+          f"{rec['kernel_bound_share']:.3f}; median radial error "
+          f"{rec['median_radial_error']:.4f}", flush=True)
     for name, got, want in (("final", final, want_final),
                             ("after expand", after, want_after)):
         check(abs(got - want) <= BENCH_RTOL * want,

@@ -206,7 +206,7 @@ class RuntimeConfig:
     checkpoint_dir: str = ""  # stage-boundary PatchState snapshots
     resume: bool = False  # resume from the latest checkpoint in the dir
     debug_dir: str = ""  # stage artifact dumps (clouds, occupancy)
-    profile_dir: str = ""  # jax.profiler trace output
+    profile_dir: str = ""  # torch.profiler trace output
 
 
 @dataclasses.dataclass(frozen=True)

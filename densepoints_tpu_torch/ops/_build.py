@@ -11,7 +11,8 @@ stream as `c_void_p`, or ctypes would cut them to 32 bits).
 launch made while a graph is captured runs nothing and is recorded, and
 `count_replay` adds the recorded launches at each replay. A counter is
 named "module" (its `KERNEL_LAUNCHES`) or "module:NAME" (a module of
-several kernels).
+several kernels, or a count of work beside the launches), or is an object
+whose `add(n)` counts (work that a host int cannot hold).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from pathlib import Path
 
 __all__ = [
     "build_library", "check_tensor", "check_warp_scene", "launch",
-    "count_launch", "take_recorded", "count_replay",
+    "count", "count_launch", "take_recorded", "count_replay",
     "VOID_P", "INT64", "INT", "FLOAT",
 ]
 
@@ -44,8 +45,8 @@ _lock = threading.Lock()
 _lib = None
 _bound: dict[str, object] = {}
 # Launches recorded by the CUDA graph under capture, by the counter that
-# counts them ("module" or "module:NAME").
-_recorded: dict[str, int] = {}
+# counts them ("module", "module:NAME" or an object with `add`).
+_recorded: dict = {}
 
 
 def _nvcc() -> str:
@@ -218,29 +219,33 @@ def launch(name: str, argtypes, device, *args):
         raise RuntimeError(f"{name} failed: CUDA error {err}")
 
 
-def _add(counter: str, n: int):
+def count(counter, n: int = 1):
+    """Add `n` to `counter` ("module": its `KERNEL_LAUNCHES`;
+    "module:NAME": its `NAME`; an object: its `add(n)`)."""
     import sys
 
+    if not isinstance(counter, str):
+        counter.add(n)
+        return
     module, _, name = counter.partition(":")
     name = name or "KERNEL_LAUNCHES"
     setattr(sys.modules[module], name,
             getattr(sys.modules[module], name) + n)
 
 
-def count_launch(counter: str):
-    """Count one launch of a kernel on `counter` ("module": its
-    `KERNEL_LAUNCHES`; "module:NAME": its `NAME`), or, while the current
-    stream captures a CUDA graph, record it for the graph's replays (a
-    capture launches nothing)."""
+def count_launch(counter, n: int = 1):
+    """`count(counter, n)` for one launch on a CUDA stream, or, while the
+    current stream captures a CUDA graph, record it for the graph's replays
+    (a capture launches nothing)."""
     import torch
 
     if torch.cuda.is_current_stream_capturing():
-        _recorded[counter] = _recorded.get(counter, 0) + 1
+        _recorded[counter] = _recorded.get(counter, 0) + n
     else:
-        _add(counter, 1)
+        count(counter, n)
 
 
-def take_recorded() -> dict[str, int]:
+def take_recorded() -> dict:
     """The launches recorded since the last call, by counter; clears
     them."""
     out = dict(_recorded)
@@ -248,7 +253,7 @@ def take_recorded() -> dict[str, int]:
     return out
 
 
-def count_replay(recorded: dict[str, int]):
+def count_replay(recorded: dict):
     """Count one replay of a graph that recorded `recorded`."""
     for counter, n in recorded.items():
-        _add(counter, n)
+        count(counter, n)

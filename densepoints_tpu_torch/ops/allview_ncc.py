@@ -20,8 +20,23 @@ graph `KERNEL_LAUNCHES` counts the launches the device makes (those the
 capture recorded, at each replay), not the capture itself.
 `allview_scorer` binds the stack and the cameras once for a caller that
 scores many batches against them (Nelder-Mead, twice a step).
+
+The work of K1 is counted at this contract, so the plain path and the
+kernel count alike, and through `_build.count_launch`, so a call replayed
+in a CUDA graph counts at each replay: `ROWS` (B a call) and `BYTES` (what
+a call must move at least, from its shapes: position and normal 12 B a
+row each, ref 8, vis V, scores 4V, anchor 8, anchor_ok 1; no image pixel)
+on the host, and the visible (row, view) pairs, anchors included, on the
+device. A call runs no op for them: each `vis` keeps a count of the calls
+that scored it, and `fold` (after a stage's solve or filter, and in
+`counts`) sums a `vis` the first time it folds it (a caller that changes
+one in place hands a new tensor instead) and adds that sum times its
+calls to a total per texture size; `counts` and `count_since` read the
+totals for `StageMetrics`.
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -38,10 +53,24 @@ __all__ = [
     "build_kernel",
     "KERNEL_LAUNCHES",
     "PLAIN_CALLS",
+    "ROWS",
+    "BYTES",
+    "fold",
+    "counts",
+    "count_since",
 ]
 
 KERNEL_LAUNCHES = 0  # kernel launches, counted where the kernel launches
 PLAIN_CALLS = 0  # calls answered by the plain torch version (CPU tensors)
+ROWS = 0  # rows scored through `allview_scorer` / `allview_scores`
+BYTES = 0  # bytes those calls must move at least
+_ROW_BYTES = 12 + 12 + 8 + 8 + 1  # position, normal, ref, anchor, anchor_ok
+_VIEW_BYTES = 1 + 4  # vis, scores
+# Visible (row, view) pairs scored, by (device, texture size): an int64
+# scalar on the device.
+_TEXTURES: dict = {}
+_PAIRS: dict = {}  # (id(vis), texture size) -> `_Pairs` of a live `vis`
+_PENDING: list = []  # `_Pairs` with calls not yet folded into `_TEXTURES`
 
 _VP, _I64 = _build.VOID_P, _build.INT64
 _ARGTYPES = (
@@ -152,32 +181,127 @@ def allview_scores_plain(
     return scores, anchor, aok
 
 
+class _Pairs:
+    """The visible (row, view) pairs of one `vis` and the calls that scored
+    them since the last `fold` (`add` is a `_build.count_launch` counter).
+    `vis` is held while calls wait to be folded, and summed at the first
+    fold."""
+
+    def __init__(self, vis: torch.Tensor, texture_size: int):
+        key = (id(vis), texture_size)
+        # `_PAIRS`'s entry goes with `vis`, before its id can be reused
+        self._ref = weakref.ref(vis, lambda _: _PAIRS.pop(key, None))
+        self.key = (vis.device, texture_size)
+        self.count = None
+        self.calls = 0
+        self._held = None
+
+    def add(self, n: int):
+        if not self.calls:
+            _PENDING.append(self)
+            self._held = self._ref()
+        self.calls += n
+
+    def fold(self):
+        if self.count is None:
+            self.count = self._held.sum()
+        elif self.count.is_cuda:  # read on this stream, maybe not its own
+            self.count.record_stream(torch.cuda.current_stream())
+        total = _TEXTURES.get(self.key)
+        if total is None:
+            _TEXTURES[self.key] = self.count * self.calls
+        else:
+            total.add_(self.count, alpha=self.calls)
+        self.calls, self._held = 0, None
+
+
+def _pairs_of(vis: torch.Tensor, texture_size: int) -> _Pairs:
+    pairs = _PAIRS.get((id(vis), texture_size))
+    if pairs is None:
+        pairs = _PAIRS[id(vis), texture_size] = _Pairs(vis, texture_size)
+    return pairs
+
+
+def fold():
+    """Add the visible pairs of the calls counted since the last fold to
+    the totals: a sum the first time a `vis` is folded, then one small add,
+    on the current stream."""
+    for pairs in _PENDING:
+        pairs.fold()
+    _PENDING.clear()
+
+
+def counts() -> dict:
+    """K1's work so far, as `count_since` takes it: rows and bytes, and a
+    copy of each total of visible pairs (copied on the device, not read)."""
+    fold()
+    return {"k1_rows": ROWS, "k1_bytes": BYTES,
+            "pairs": {key: t.clone() for key, t in _TEXTURES.items()}}
+
+
+def count_since(metrics, before: dict):
+    """Set K1's work since `before` (a `counts()`) as `metrics`' counters
+    `k1_rows`, `k1_textures` (visible (row, view) pairs), `k1_texels`
+    (textures times k^2) and `k1_bytes`. Reads the device's totals once
+    (one read a device; the caller has synced)."""
+    fold()
+    textures = texels = 0
+    for device in {key[0] for key in _TEXTURES}:
+        keys = [key for key in _TEXTURES if key[0] == device]
+        since = torch.stack([_TEXTURES[key] - before["pairs"].get(key, 0)
+                             for key in keys]).tolist()
+        for (_, k), n in zip(keys, since):
+            textures += n
+            texels += n * k * k
+    metrics.count("k1_rows", ROWS - before["k1_rows"])
+    metrics.count("k1_textures", textures)
+    metrics.count("k1_texels", texels)
+    metrics.count("k1_bytes", BYTES - before["k1_bytes"])
+
+
+class _Scorer:
+    """score(position, normal, ref, vis) -> (scores, anchor, anchor_ok)
+    with the stack and the cameras bound, counting each call's work."""
+
+    def __init__(self, images: torch.Tensor, cameras: Cameras,
+                 texture_size: int):
+        self.images, self.cameras = images, cameras
+        self.texture_size = int(texture_size)
+        if images.device.type != "cpu":
+            # the cameras' contiguous copies, made once
+            self.scene = (images, cameras.K.contiguous(),
+                          cameras.E.contiguous(), cameras.C.contiguous(),
+                          cameras.x_axis.contiguous(), cameras.width,
+                          cameras.height)
+
+    def __call__(self, position, normal, ref, vis):
+        global PLAIN_CALLS
+        B, V = vis.shape
+        plain = self.images.device.type == "cpu"
+        if B:
+            count = _build.count if plain else _build.count_launch
+            count(f"{__name__}:ROWS", B)
+            count(f"{__name__}:BYTES", B * (_ROW_BYTES + _VIEW_BYTES * V))
+            count(_pairs_of(vis, self.texture_size))
+        if plain:
+            PLAIN_CALLS += 1
+            return allview_scores_plain(
+                self.images, self.cameras, position, normal, ref, vis,
+                self.texture_size,
+            )
+        return allview_scores_cuda(
+            *self.scene, position.contiguous(), normal.contiguous(),
+            ref.to(torch.int64).contiguous(), vis.contiguous(),
+            self.texture_size,
+        )
+
+
 def allview_scorer(images: torch.Tensor, cameras: Cameras,
                    texture_size: int):
     """`allview_scores` with the stack and the cameras bound: returns
     score(position, normal, ref, vis) -> (scores, anchor, anchor_ok). The
     cameras' contiguous copies are made here, once."""
-    if images.device.type == "cpu":
-
-        def plain(position, normal, ref, vis):
-            global PLAIN_CALLS
-            PLAIN_CALLS += 1
-            return allview_scores_plain(
-                images, cameras, position, normal, ref, vis, texture_size
-            )
-
-        return plain
-    scene = (images, cameras.K.contiguous(), cameras.E.contiguous(),
-             cameras.C.contiguous(), cameras.x_axis.contiguous(),
-             cameras.width, cameras.height)
-
-    def score(position, normal, ref, vis):
-        return allview_scores_cuda(
-            *scene, position.contiguous(), normal.contiguous(),
-            ref.to(torch.int64).contiguous(), vis.contiguous(), texture_size,
-        )
-
-    return score
+    return _Scorer(images, cameras, texture_size)
 
 
 def allview_scores(

@@ -36,6 +36,9 @@ With a `mesh`, each rank holds a row block of the batch and the exit is one
 `all_reduce` of the flag per block, outside the graph: every rank runs
 until the whole (global) batch has converged, as the JAX loop's predicate
 over the global batch does.
+
+Profiler spans: `nm/solve` around each call, `nm/capture` around each
+graph's capture; none inside the blocks or around a replay.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ import contextlib
 from typing import Callable
 
 import torch
+from torch.profiler import record_function
 
 from densepoints_tpu_torch.ops import _build, nm_step
 
@@ -221,8 +225,9 @@ def _run_graph(advance, state, m, max_iterations, tolerance, mesh):
         state, flag = _block(advance, state, m, max_iterations, tolerance)
         STEPS += m
         if not _finished(flag, mesh):
-            graph, flag, recorded = _capture(advance, state, m,
-                                             max_iterations, tolerance)
+            with record_function("nm/capture"):
+                graph, flag, recorded = _capture(advance, state, m,
+                                                 max_iterations, tolerance)
             while True:
                 graph.replay()
                 GRAPH_REPLAYS += 1
@@ -266,32 +271,35 @@ def nelder_mead(
         from densepoints_tpu_torch.parallel.mesh import require_started
 
         require_started(mesh, "nelder_mead")
-    B, D = x0.shape
-    dev = x0.device
-    if B == 0:
-        return (x0.clone(), x0.new_empty((0,)),
-                torch.zeros(0, dtype=torch.int32, device=dev))
-    offsets = torch.cat(
-        [x0.new_zeros((1, D)), torch.diag(init_step.to(x0))], dim=0
-    )  # (D+1, D)
-    verts = x0[:, None, :] + offsets[None, :, :]  # (B, D+1, D)
-    fvals = f(verts)  # (B, D+1)
-    state = (
-        verts, fvals,
-        torch.zeros(B, dtype=torch.bool, device=dev),  # done
-        torch.zeros(B, dtype=torch.int32, device=dev),  # iters
-        torch.zeros((), dtype=torch.int64, device=dev),  # step
-    )
-    if max_iterations > 0:
-        advance = (nm_step.KernelStep(f, verts)
-                   if isinstance(f, nm_step.StepObjective)
-                   else _TorchStep(f))
-        run = (_run_graph if dev.type == "cuda" and not _eager
-               else _run_eager)
-        state = run(advance, state, _block_steps, max_iterations, tolerance,
-                    mesh)
-    verts, fvals, _, iters, _ = state
-    ib = torch.argmin(fvals, dim=1)
-    x_best = torch.take_along_dim(verts, ib[:, None, None], dim=1)[:, 0, :]
-    f_best = torch.take_along_dim(fvals, ib[:, None], dim=1)[:, 0]
-    return x_best, f_best, iters
+    # holds syncs: the exit flag is read once a block
+    with record_function("nm/solve"):
+        B, D = x0.shape
+        dev = x0.device
+        if B == 0:
+            return (x0.clone(), x0.new_empty((0,)),
+                    torch.zeros(0, dtype=torch.int32, device=dev))
+        offsets = torch.cat(
+            [x0.new_zeros((1, D)), torch.diag(init_step.to(x0))], dim=0
+        )  # (D+1, D)
+        verts = x0[:, None, :] + offsets[None, :, :]  # (B, D+1, D)
+        fvals = f(verts)  # (B, D+1)
+        state = (
+            verts, fvals,
+            torch.zeros(B, dtype=torch.bool, device=dev),  # done
+            torch.zeros(B, dtype=torch.int32, device=dev),  # iters
+            torch.zeros((), dtype=torch.int64, device=dev),  # step
+        )
+        if max_iterations > 0:
+            advance = (nm_step.KernelStep(f, verts)
+                       if isinstance(f, nm_step.StepObjective)
+                       else _TorchStep(f))
+            run = (_run_graph if dev.type == "cuda" and not _eager
+                   else _run_eager)
+            state = run(advance, state, _block_steps, max_iterations,
+                        tolerance, mesh)
+        verts, fvals, _, iters, _ = state
+        ib = torch.argmin(fvals, dim=1)
+        x_best = torch.take_along_dim(verts, ib[:, None, None],
+                                      dim=1)[:, 0, :]
+        f_best = torch.take_along_dim(fvals, ib[:, None], dim=1)[:, 0]
+        return x_best, f_best, iters

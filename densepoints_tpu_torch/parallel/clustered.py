@@ -45,7 +45,7 @@ import torch
 
 from densepoints_tpu_torch.config import PipelineConfig
 from densepoints_tpu_torch.core.cameras import Cameras
-from densepoints_tpu_torch.ops import simplex
+from densepoints_tpu_torch.ops import allview_ncc, simplex
 from densepoints_tpu_torch.parallel.clusters import (
     cluster_halos,
     cluster_views,
@@ -228,7 +228,7 @@ def densify_clustered(
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
         else None
     metrics = StageMetrics(sync=sync)
-    nm_before = simplex.counts()
+    nm_before, k1_before = simplex.counts(), allview_ncc.counts()
     plan = plan_clusters(cameras, n_clusters or nproc, pid, halo_threshold)
     lv = _LocalViews(cameras, plan)
     if image_loader is not None:
@@ -430,5 +430,6 @@ def densify_clustered(
     metrics.count("patches_final", final.capacity)
 
     simplex.count_since(metrics, nm_before)
+    allview_ncc.count_since(metrics, k1_before)
     log.info("clustered densify done: %s", metrics.summary())
     return DensifyResult(patches=final, metrics=metrics)

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from densepoints_tpu_torch.config import PipelineConfig
-from densepoints_tpu_torch.ops import simplex
+from densepoints_tpu_torch.ops import allview_ncc, simplex
 from densepoints_tpu_torch.parallel.distributed import (
     pad_views,
     refine_step_once,
@@ -270,7 +270,7 @@ def densify_multihost(
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
         else None
     metrics = StageMetrics(sync=sync)
-    nm_before = simplex.counts()
+    nm_before, k1_before = simplex.counts(), allview_ncc.counts()
     cameras = scene.cameras.to(dev)
     n_dev = mesh.world_size
     rt = config.runtime
@@ -472,5 +472,6 @@ def densify_multihost(
         debug.dump_cloud(rt.debug_dir, "final", final)
 
     simplex.count_since(metrics, nm_before)
+    allview_ncc.count_since(metrics, k1_before)
     log.info("multihost densify done: %s", metrics.summary())
     return DensifyResult(patches=final, metrics=metrics)

@@ -24,7 +24,7 @@ import torch
 
 from densepoints_tpu_torch.config import PipelineConfig
 from densepoints_tpu_torch.io.scene import Scene
-from densepoints_tpu_torch.ops import simplex
+from densepoints_tpu_torch.ops import allview_ncc, simplex
 from densepoints_tpu_torch.parallel.distributed import (
     distributed_insert,
     distributed_refine_step,
@@ -71,7 +71,7 @@ def densify_distributed(
         return local_job.run("densify_distributed", mesh, scene=scene,
                              config=config)
     metrics = StageMetrics(sync=_sync(mesh))
-    nm_before = simplex.counts()
+    nm_before, k1_before = simplex.counts(), allview_ncc.counts()
     dev = mesh.device
     cameras = scene.cameras.to(dev)
     images = torch.as_tensor(scene.images, dtype=torch.float32, device=dev)
@@ -156,5 +156,6 @@ def densify_distributed(
             )
 
     simplex.count_since(metrics, nm_before)
+    allview_ncc.count_since(metrics, k1_before)
     log.info("distributed densify done: %s", metrics.summary())
     return DensifyResult(patches=state, metrics=metrics)

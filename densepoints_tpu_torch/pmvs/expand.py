@@ -10,12 +10,20 @@
 
 The winner of a contested cell is the lowest candidate index, so a run is
 deterministic for a given input.
+
+Profiler spans: `expand/insert_seeds`, then per round `expand/round` around
+`expand/candidates` (frontier, candidates, pre-screen), `expand/solve`
+(Nelder-Mead), `expand/rescore` (visibility, NCC filter) and
+`expand/insert` (cells, insertion, compaction). `CANDIDATES` and
+`ACCEPTED` sum the rounds' candidates and accepted patches (`counts`,
+`count_since`).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.profiler import record_function
 
 from densepoints_tpu_torch.config import (
     ExpandConfig,
@@ -35,7 +43,23 @@ from densepoints_tpu_torch.pmvs.patch import PatchState
 from densepoints_tpu_torch.pmvs.visibility import classify_views
 from densepoints_tpu_torch.utils import log
 
-__all__ = ["make_expansion_candidates", "expand_patches"]
+__all__ = ["make_expansion_candidates", "expand_patches", "counts",
+           "count_since"]
+
+CANDIDATES = 0  # candidates optimized, summed over rounds
+ACCEPTED = 0  # candidates inserted, summed over rounds
+
+
+def counts() -> dict:
+    """The rounds' counters, under the names `StageMetrics` reports."""
+    return {"expand_candidates": CANDIDATES, "expand_accepted": ACCEPTED}
+
+
+def count_since(metrics, before: dict):
+    """Set the rounds' counts since `before` (a `counts()`) as `metrics`'
+    counters."""
+    for name, value in counts().items():
+        metrics.count(name, value - before[name])
 
 
 def make_expansion_candidates(
@@ -66,6 +90,7 @@ def expand_patches(
 
     Returns (PatchState with only accepted patches, grids).
     """
+    global CANDIDATES, ACCEPTED
     grid_scale = organizer_config.grid_scale
     min_grids = organizer_config.min_grids_to_accept
     grids = make_grids(
@@ -77,15 +102,17 @@ def expand_patches(
         )
     dev = seeds.position.device
 
-    seeds = seeds.compact()
-    cells = candidate_cells(
-        grids, cameras, seeds.position, seeds.vis, grid_scale
-    )
-    accepted, grids = bulk_try_insert(
-        grids, cells, seeds.alive,
-        torch.arange(seeds.capacity, device=dev), min_grids,
-    )
-    state = seeds.masked(accepted).compact()
+    # holds a sync: `compact()`, a boolean index, waits for the device
+    with record_function("expand/insert_seeds"):
+        seeds = seeds.compact()
+        cells = candidate_cells(
+            grids, cameras, seeds.position, seeds.vis, grid_scale
+        )
+        accepted, grids = bulk_try_insert(
+            grids, cells, seeds.alive,
+            torch.arange(seeds.capacity, device=dev), min_grids,
+        )
+        state = seeds.masked(accepted).compact()
     log.info("expansion: %d/%d seeds inserted", state.capacity, seeds.capacity)
     frontier = state
     parts = [state]
@@ -94,13 +121,41 @@ def expand_patches(
     for round_idx in range(expand_config.max_rounds):
         if frontier.capacity == 0 or total >= expand_config.max_patches:
             break
+        with record_function("expand/round"):
+            out = _round(
+                images, cameras, frontier, grids, total, round_idx,
+                expand_config, optimize_config, grid_scale, min_grids,
+            )
+        if out is None:
+            break
+        new_patches, grids, n_candidates = out
+        CANDIDATES += n_candidates
+        ACCEPTED += new_patches.capacity
+        if new_patches.capacity == 0:
+            break
+        parts.append(new_patches)
+        total += new_patches.capacity
+        frontier = new_patches
+
+    return PatchState.concatenate(parts), grids
+
+
+def _round(images, cameras, frontier, grids, total, round_idx,
+           expand_config, optimize_config, grid_scale, min_grids):
+    """One wavefront round from `frontier`: (accepted patches, grids,
+    candidates optimized), or None when no candidate is left to
+    optimize."""
+    dev = frontier.position.device
+    # holds a sync: `compact()` (and the pre-screen's count) waits for the
+    # device
+    with record_function("expand/candidates"):
         expandable = frontier.alive & (
             frontier.num_visible()
             >= expand_config.min_visible_views_to_expand
         )
         frontier = frontier.masked(expandable).compact()
         if frontier.capacity == 0:
-            break
+            return None
         cand = make_expansion_candidates(cameras, frontier, grid_scale)
         if expand_config.prescreen != "off":
             # Drop candidates that cannot reach min_grids cell wins before
@@ -119,13 +174,16 @@ def expand_patches(
                 round_idx, n_before, cand.capacity,
             )
             if cand.capacity == 0:
-                break
-        # Optimize at the expansion texture size, then re-classify
-        # visibility and NCC-filter.
+                return None
+    # Optimize at the expansion texture size, then re-classify
+    # visibility and NCC-filter. Holds syncs: Nelder-Mead reads its exit
+    # flag once a block.
+    with record_function("expand/solve"):
         cand = optimize_patches(
             images, cameras, cand, expand_config.texture_size,
             optimize_config,
         )
+    with record_function("expand/rescore"):
         vis, cnd = classify_views(
             cameras, cand.position, cand.normal, cand.ref,
             optimize_config.visible_angle, optimize_config.candidate_angle,
@@ -135,6 +193,8 @@ def expand_patches(
             images, cameras, cand, expand_config.texture_size,
             optimize_config,
         )
+    # holds a sync: `compact()` waits for the device
+    with record_function("expand/insert"):
         cells = candidate_cells(
             grids, cameras, cand.position, cand.vis, grid_scale
         )
@@ -143,16 +203,10 @@ def expand_patches(
             total + torch.arange(cand.capacity, device=dev), min_grids,
         )
         new_patches = cand.masked(accepted).compact()
-        log.info(
-            "expansion round %d: frontier=%d candidates=%d accepted=%d "
-            "total=%d",
-            round_idx, frontier.capacity, cand.capacity,
-            new_patches.capacity, total + new_patches.capacity,
-        )
-        if new_patches.capacity == 0:
-            break
-        parts.append(new_patches)
-        total += new_patches.capacity
-        frontier = new_patches
-
-    return PatchState.concatenate(parts), grids
+    log.info(
+        "expansion round %d: frontier=%d candidates=%d accepted=%d "
+        "total=%d",
+        round_idx, frontier.capacity, cand.capacity,
+        new_patches.capacity, total + new_patches.capacity,
+    )
+    return new_patches, grids, cand.capacity

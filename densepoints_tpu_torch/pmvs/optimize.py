@@ -29,6 +29,7 @@ import torch
 
 from densepoints_tpu_torch.config import OptimizeConfig
 from densepoints_tpu_torch.core.cameras import Cameras
+from densepoints_tpu_torch.ops import allview_ncc
 from densepoints_tpu_torch.ops.allview_ncc import (
     allview_scorer,
     allview_scores,
@@ -373,6 +374,7 @@ def filter_by_error_once(images, cameras, state, texture_size, config,
         images, cameras, state.position, state.normal, state.ref,
         state.vis, texture_size,
     )
+    allview_ncc.fold()  # K1's work of this batch, before its `vis` goes
     cols = torch.arange(V, device=state.vis.device)[None, :]
     has = state.vis.any(dim=1)
     payload = state.vis & (cols != anchor[:, None])
@@ -440,6 +442,7 @@ def optimize_patches_once(images, cameras, state, texture_size, config,
         max_iterations=config.max_iterations, tolerance=config.tolerance,
         mesh=mesh,
     )
+    allview_ncc.fold()  # K1's work of the solve, before its `vis` goes
     pos, nrm = unparametrize(
         x_best, state.position, state.normal, cameras.C[state.ref]
     )

@@ -25,7 +25,8 @@ from densepoints_tpu_torch.core.cameras import Cameras
 from densepoints_tpu_torch.io.ply import write_ply
 from densepoints_tpu_torch.io.scene import Scene
 from densepoints_tpu_torch.multiscale import densify_multiscale
-from densepoints_tpu_torch.ops import simplex
+from densepoints_tpu_torch.ops import allview_ncc, simplex
+from densepoints_tpu_torch.pmvs import expand
 from densepoints_tpu_torch.pmvs.expand import expand_patches
 from densepoints_tpu_torch.pmvs.filter import run_filters
 from densepoints_tpu_torch.pmvs.optimize import filter_by_error, optimize_patches
@@ -120,7 +121,8 @@ def densify(
     written as `densify.pt.trace.json` into `runtime.profile_dir`.
     """
     device = torch.device(device)
-    nm_before = simplex.counts()
+    nm_before, k1_before = simplex.counts(), allview_ncc.counts()
+    expand_before = expand.counts()
     profile_dir = config.runtime.profile_dir
     if not profile_dir:
         result = _densify_inner(scene, config, device)
@@ -135,7 +137,10 @@ def densify(
         Path(profile_dir).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(
             str(Path(profile_dir) / "densify.pt.trace.json"))
+    # after the last stage's sync: reads K1's totals once
     simplex.count_since(result.metrics, nm_before)
+    allview_ncc.count_since(result.metrics, k1_before)
+    expand.count_since(result.metrics, expand_before)
     return result
 
 

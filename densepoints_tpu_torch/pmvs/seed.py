@@ -4,11 +4,17 @@ Seed patches take the nearest camera as reference view and the unit ray
 from it as normal, then visibility classification; the NCC filter and the
 simplex optimization follow in the pipeline. Every numeric stage is a
 batched device op; only track assembly runs on the host (union-find).
+
+Profiler spans of `generate_seed_points`: `seed/detect`, `seed/describe`,
+`seed/pairs` (the view pairs and their F matrices), `seed/match` (the chunk
+loop), `seed/tracks` (the matches to the host, track assembly) and
+`seed/triangulate` (the DLT and its copy back).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from densepoints_tpu_torch.config import (
     MatchingConfig,
@@ -165,24 +171,30 @@ def generate_seed_points(
         raise ValueError(f"unknown matcher {matcher!r}")
     V = cameras.num_views
     dev = images.device
-    if pairs is None:
-        pairs = covisibility_pairs(cameras, config.max_pairs_per_view)
     desc = None
-    if mesh is not None:
-        xy, _, valid, desc, _ = _viewsharded_features(mesh, images, config)
-    else:
-        xy, _, valid = _detect(images, config)
-    log.info(
-        "detected keypoints per view: %s", valid.sum(dim=1).tolist()
-    )
+    # holds a sync: the log's `.tolist()` waits for the detector
+    with record_function("seed/detect"):
+        if mesh is not None:
+            xy, _, valid, desc, _ = _viewsharded_features(mesh, images,
+                                                          config)
+        else:
+            xy, _, valid = _detect(images, config)
+        log.info(
+            "detected keypoints per view: %s", valid.sum(dim=1).tolist()
+        )
     if mesh is None and _wants_descriptors(config):
-        desc = _describe(images, xy, config)
-    F = torch.as_tensor(
-        fundamental_matrices_for_pairs(
-            cameras.P.cpu().numpy().astype(np.float64), pairs
-        ).astype(np.float32),
-        device=dev,
-    )
+        with record_function("seed/describe"):
+            desc = _describe(images, xy, config)
+    # holds a sync: the cameras' `.cpu()` waits for the descriptors
+    with record_function("seed/pairs"):
+        if pairs is None:
+            pairs = covisibility_pairs(cameras, config.max_pairs_per_view)
+        F = torch.as_tensor(
+            fundamental_matrices_for_pairs(
+                cameras.P.cpu().numpy().astype(np.float64), pairs
+            ).astype(np.float32),
+            device=dev,
+        )
 
     def match_chunk(Fc, a, b):
         if matcher == "hamming_knn":
@@ -205,25 +217,31 @@ def generate_seed_points(
             Fc, xy[a], xy[b], m, config.max_epipolar_distance
         )
 
-    i1 = torch.as_tensor(pairs[:, 0], dtype=torch.int64, device=dev)
-    i2 = torch.as_tensor(pairs[:, 1], dtype=torch.int64, device=dev)
-    chunk = _pair_chunk(xy.shape[1])
-    parts = [
-        match_chunk(F[lo : lo + chunk], i1[lo : lo + chunk],
-                    i2[lo : lo + chunk])
-        for lo in range(0, len(pairs), chunk)
-    ]
+    with record_function("seed/match"):
+        i1 = torch.as_tensor(pairs[:, 0], dtype=torch.int64, device=dev)
+        i2 = torch.as_tensor(pairs[:, 1], dtype=torch.int64, device=dev)
+        chunk = _pair_chunk(xy.shape[1])
+        parts = [
+            match_chunk(F[lo : lo + chunk], i1[lo : lo + chunk],
+                        i2[lo : lo + chunk])
+            for lo in range(0, len(pairs), chunk)
+        ]
     onehop = matcher == "epipolar_all"
-    if parts:
-        matches = torch.cat(parts).cpu().numpy()
-    else:
-        tail = (config.epipolar_topk,) if onehop else ()
-        matches = np.zeros((0, xy.shape[1]) + tail, np.int64)
-    per_pair = (matches >= 0).reshape(len(matches), -1).sum(axis=1)
-    log.info("matches per pair: %s", per_pair.tolist())
-    assemble = build_tracks_onehop if onehop else build_tracks
-    obs, mask, _ = assemble(V, xy.cpu().numpy(), pairs, matches, min_views=2)
-    points = triangulate_tracks(cameras.P, obs, mask)
+    # holds a sync: the matches' `.cpu()` waits for the matching
+    with record_function("seed/tracks"):
+        if parts:
+            matches = torch.cat(parts).cpu().numpy()
+        else:
+            tail = (config.epipolar_topk,) if onehop else ()
+            matches = np.zeros((0, xy.shape[1]) + tail, np.int64)
+        per_pair = (matches >= 0).reshape(len(matches), -1).sum(axis=1)
+        log.info("matches per pair: %s", per_pair.tolist())
+        assemble = build_tracks_onehop if onehop else build_tracks
+        obs, mask, _ = assemble(V, xy.cpu().numpy(), pairs, matches,
+                                min_views=2)
+    # holds a sync: the points' `.cpu()` waits for the DLT
+    with record_function("seed/triangulate"):
+        points = triangulate_tracks(cameras.P, obs, mask)
     log.info("tracks%s: %d -> seed points",
              " (one-hop)" if onehop else "", len(points))
     return points, obs, mask

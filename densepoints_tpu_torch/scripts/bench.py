@@ -24,9 +24,7 @@ on its inputs (`_rigs.bench_rig`: one `default_rng(0)` drawn in its order):
      filters, colour; `scripts.prescreen_ab.densify_from_seeds`), the
      `scan` profile with 4 rounds of 40 Nelder-Mead iterations, 120 seed
      iterations and grid_scale 4. One cold run, then `warm_runs` warm runs
-     with the seeds moved by 1e-4, 2e-4, ...; on a card one more warm run
-     under `torch.profiler` gives the device-busy share of its wall (its
-     time is in no other number).
+     with the seeds moved by 1e-4, 2e-4, ....
 
 A line with the refine and kernel numbers is printed before the end-to-end
 section; the record is the last line. Rates and seconds of repeated runs
@@ -40,8 +38,8 @@ Departures from the JAX program:
     bytes (the distinct pixels the taps read) and f32 operations.
   * Every rate has a spread over several runs, where the JAX program took
     one reading; the record adds final patches, the median radial error
-    of the cloud, K1 launches and plain scoring calls, and the device's
-    busy share. No `vs_baseline`: no bar of the port is set.
+    of the cloud, K1 launches and plain scoring calls. No `vs_baseline`:
+    no bar of the port is set.
   * `--out` has no default and nothing is written without it: the JAX
     program's records are never written. `--device` (default cuda) picks
     the device; `cpu` runs the plain scoring paths.
@@ -157,22 +155,9 @@ def kernel_section(images, cams, state, c, device):
     }
 
 
-def busy_share(fn, device) -> float:
-    """The device-busy share of the wall of one `fn()` under
-    `torch.profiler` on a card: the device time of its kernels over its
-    wall on the host's clock."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, wall = _timing.host_seconds(fn, device)
-    device_s = sum(e.device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
-    return device_s / wall
-
-
 def e2e_section(c, sphere, device):
-    """End to end on the bench sphere: one cold run, `warm_runs` warm
-    runs, and on a card one profiled warm run."""
+    """End to end on the bench sphere: one cold run and `warm_runs` warm
+    runs."""
     from densepoints_tpu_torch.config import load_config
     from densepoints_tpu_torch.core.cameras import Cameras
     from densepoints_tpu_torch.io.scene import Scene
@@ -192,8 +177,6 @@ def e2e_section(c, sphere, device):
     _, cold = _timing.host_seconds(lambda: densify(0), device)
     warm = [_timing.host_seconds(lambda: densify(i), device)
             for i in range(1, c["warm_runs"] + 1)]
-    busy = (busy_share(lambda: densify(c["warm_runs"] + 1), device)
-            if device.type == "cuda" else None)
     finals = [res.patches.capacity for (res, _), _ in warm]
     (first, metrics), _ = warm[0]
     cloud = first.positions
@@ -211,7 +194,6 @@ def e2e_section(c, sphere, device):
             metrics.counters["patches_after_expand"]),
         "patches_final_runs": finals,
         "median_radial_error": float(np.median(radial)),
-        "device_busy_share": busy,
     }
 
 

@@ -5,6 +5,8 @@ import contextlib
 import logging
 import time
 
+from torch.profiler import record_function
+
 log = logging.getLogger("densepoints_tpu_torch")
 if not log.handlers:
     _h = logging.StreamHandler()
@@ -20,7 +22,8 @@ class StageMetrics:
 
     `sync`, when given, is called before each clock read (e.g.
     `torch.cuda.synchronize`), so a stage's time covers its device work and
-    not only the host's enqueue."""
+    not only the host's enqueue. A stage is also a profiler span,
+    `stage/<name>`, around its timer and syncs."""
 
     def __init__(self, sync=None):
         self.times: dict[str, float] = {}
@@ -29,15 +32,16 @@ class StageMetrics:
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        self._sync()
-        start = time.perf_counter()
-        try:
-            yield
-        finally:
+        with record_function(f"stage/{name}"):
             self._sync()
-            self.times[name] = self.times.get(name, 0.0) + (
-                time.perf_counter() - start
-            )
+            start = time.perf_counter()
+            try:
+                yield
+            finally:
+                self._sync()
+                self.times[name] = self.times.get(name, 0.0) + (
+                    time.perf_counter() - start
+                )
 
     def count(self, name: str, value: float):
         self.counters[name] = value
