@@ -22,6 +22,7 @@ from densepoints_tpu_torch.ba import (
 )
 from densepoints_tpu_torch.config import PipelineConfig
 from densepoints_tpu_torch.core.cameras import Cameras
+from densepoints_tpu_torch.features import tracks
 from densepoints_tpu_torch.io.ply import write_ply
 from densepoints_tpu_torch.io.scene import Scene
 from densepoints_tpu_torch.multiscale import densify_multiscale
@@ -122,7 +123,7 @@ def densify(
     """
     device = torch.device(device)
     nm_before, k1_before = simplex.counts(), allview_ncc.counts()
-    expand_before = expand.counts()
+    expand_before, tracks_before = expand.counts(), tracks.counts()
     profile_dir = config.runtime.profile_dir
     if not profile_dir:
         result = _densify_inner(scene, config, device)
@@ -141,6 +142,7 @@ def densify(
     simplex.count_since(result.metrics, nm_before)
     allview_ncc.count_since(result.metrics, k1_before)
     expand.count_since(result.metrics, expand_before)
+    tracks.count_since(result.metrics, tracks_before)
     return result
 
 

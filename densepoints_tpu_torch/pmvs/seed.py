@@ -3,12 +3,14 @@
 Seed patches take the nearest camera as reference view and the unit ray
 from it as normal, then visibility classification; the NCC filter and the
 simplex optimization follow in the pipeline. Every numeric stage is a
-batched device op; only track assembly runs on the host (union-find).
+batched device op, track assembly too (`build_tracks_device`: label propagation
+over the match table where the matching left it); only the one-hop
+assembly of matcher "epipolar_all" runs on the host.
 
 Profiler spans of `generate_seed_points`: `seed/detect`, `seed/describe`,
 `seed/pairs` (the view pairs and their F matrices), `seed/match` (the chunk
-loop), `seed/tracks` (the matches to the host, track assembly) and
-`seed/triangulate` (the DLT and its copy back).
+loop), `seed/tracks` (the matches-per-pair log, track assembly) and
+`seed/triangulate` (the DLT, and the points and tracks to the host).
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from densepoints_tpu_torch.features.matching import (
     match_pair_absolute,
 )
 from densepoints_tpu_torch.features.tracks import (
-    build_tracks,
+    build_tracks_device,
     build_tracks_onehop,
     triangulate_tracks,
 )
@@ -227,21 +229,28 @@ def generate_seed_points(
             for lo in range(0, len(pairs), chunk)
         ]
     onehop = matcher == "epipolar_all"
-    # holds a sync: the matches' `.cpu()` waits for the matching
+    # holds a sync: the log's `.tolist()` waits for the matching
     with record_function("seed/tracks"):
         if parts:
-            matches = torch.cat(parts).cpu().numpy()
+            matches = torch.cat(parts)
         else:
             tail = (config.epipolar_topk,) if onehop else ()
-            matches = np.zeros((0, xy.shape[1]) + tail, np.int64)
-        per_pair = (matches >= 0).reshape(len(matches), -1).sum(axis=1)
+            matches = torch.full((0, xy.shape[1]) + tail, -1,
+                                 dtype=torch.int64, device=dev)
+        per_pair = (matches >= 0).flatten(1).sum(dim=1)
         log.info("matches per pair: %s", per_pair.tolist())
-        assemble = build_tracks_onehop if onehop else build_tracks
-        obs, mask, _ = assemble(V, xy.cpu().numpy(), pairs, matches,
-                                min_views=2)
+        if onehop:
+            obs, mask, _ = build_tracks_onehop(
+                V, xy.cpu().numpy(), pairs, matches.cpu().numpy(),
+                min_views=2)
+        else:
+            obs, mask, _ = build_tracks_device(
+                V, xy, torch.stack([i1, i2], dim=1), matches, min_views=2)
     # holds a sync: the points' `.cpu()` waits for the DLT
     with record_function("seed/triangulate"):
         points = triangulate_tracks(cameras.P, obs, mask)
+        if not onehop:
+            obs, mask = obs.cpu().numpy(), mask.cpu().numpy()
     log.info("tracks%s: %d -> seed points",
              " (one-hop)" if onehop else "", len(points))
     return points, obs, mask

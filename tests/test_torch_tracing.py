@@ -10,6 +10,8 @@ sphere on the CPU.
     `k1_bytes`) equal a tally made by wrapping the plain scorer, and stay
     true under a graph's replays;
   * expansion's counters equal the rounds' log lines;
+  * the seed tracks' counters (`seed_track_nodes`, `seed_track_rounds`)
+    are in `densify`'s metrics;
   * the cloud is bitwise the same with and without a profiler recording;
   * on a card (`cuda`), one `optimize_patches` call counts the same K1
     work through its CUDA graph as with `nelder_mead(_eager=True)`.
@@ -167,6 +169,16 @@ def test_expansion_counters_equal_the_rounds(runs):
     rounds = [(int(m[1]), int(m[2])) for m in rounds if m]
     assert counters["expand_candidates"] == sum(c for c, _ in rounds) > 0
     assert counters["expand_accepted"] == sum(a for _, a in rounds) > 0
+
+
+def test_track_counters_are_in_the_metrics(runs):
+    counters = runs["traced"].metrics.counters
+    tracks_line = next(line for line in runs["lines"]
+                       if line.startswith("tracks: "))
+    assert int(tracks_line.split()[1]) > 0
+    # every track holds >= 2 matched nodes; labels need >= 1 round
+    assert counters["seed_track_nodes"] >= 2 * int(tracks_line.split()[1])
+    assert counters["seed_track_rounds"] >= 1
 
 
 def test_cloud_is_the_same_with_and_without_the_profiler(runs):
