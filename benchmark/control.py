@@ -16,15 +16,23 @@ The faults break the timed path underneath a run, one each:
   * `nm_unchanged`: Nelder-Mead returns the state it was given;
   * `half_unscored`: the NCC filter leaves the second half of each batch
     unscored and keeps their views as given, judging only the rest;
-  * (the exchange between cards left out: no cell runs on more than one)
+  * `exchange_left_out` (a cell of several cards): each `all_gather` of
+    the mesh (the seed front end's keypoints, the refine slices, the
+    grids' writes; `parallel/mesh.py`'s and the name that
+    `parallel/distributed.py` binds) keeps rank 0's part and zeroes the
+    other ranks' rows, as rank 0's cloud would be without the exchange;
+    the collective still runs on every rank, so the ranks stay in step
+    and their state alike. The `all_reduce`s (Nelder-Mead's exit flag,
+    the grids' claims and votes) still exchange.
 
     python3 benchmark/control.py --workload CELL --seeds S1,S2,... \\
         --seconds S --mode MODE
 
-(MODE: sound, control, control_solve, nm_unchanged or half_unscored)
-runs one window per seed in one process (on the card) and prints, per
-seed, one JSON line of the numbers compared and whether the run was
-correct.
+(MODE: sound, control, control_solve, nm_unchanged, half_unscored or
+exchange_left_out) runs one window per seed in one process (on the card;
+a cell of several cards, one job of its ranks a seed, each rank in MODE)
+and prints, per seed, one JSON line of the numbers compared and whether
+the run was correct.
 """
 from __future__ import annotations
 
@@ -143,9 +151,29 @@ def half_unscored():
         yield
 
 
+@contextlib.contextmanager
+def exchange_left_out():
+    from densepoints_tpu_torch.parallel import distributed
+    from densepoints_tpu_torch.parallel import mesh as pmesh
+
+    real = pmesh.all_gather
+
+    def rank0_only(mesh, t):
+        out = real(mesh, t)
+        if mesh.world_size > 1:
+            out = out.clone()
+            out[t.shape[0]:] = 0
+        return out
+
+    with _patched(pmesh, "all_gather", rank0_only), \
+            _patched(distributed, "all_gather", rank0_only):
+        yield
+
+
 MODES = {"sound": contextlib.nullcontext, "control": control,
          "control_solve": control_solve, "nm_unchanged": nm_unchanged,
-         "half_unscored": half_unscored}
+         "half_unscored": half_unscored,
+         "exchange_left_out": exchange_left_out}
 
 
 def main(argv=None) -> int:
@@ -165,8 +193,16 @@ def main(argv=None) -> int:
     cell = harness.load_cell(args.workload)
     for seed in (int(s) for s in args.seeds.split(",")):
         t = time.perf_counter()
-        result, checks = harness.run_cell(cell, seed, args.seconds, False,
-                                          "cuda", t, window=MODES[args.mode])
+        if cell["chips"] > 1:
+            from benchmark import ranks
+
+            result, checks, _ = ranks.run_job(cell, seed, args.seconds,
+                                              False, "cuda", t,
+                                              mode=args.mode)
+        else:
+            result, checks = harness.run_cell(cell, seed, args.seconds,
+                                              False, "cuda", t,
+                                              window=MODES[args.mode])
         print(json.dumps({
             "workload": args.workload, "mode": args.mode, "seed": seed,
             "correct": result["correct"], "scenes": result["attempted"],

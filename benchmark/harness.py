@@ -1,27 +1,31 @@
-"""The benchmark of the PyTorch/CUDA port: one cell, one run, one process.
+"""The benchmark of the PyTorch/CUDA port: one cell, one run.
 
 A cell (`workloads/<cell>.json`) names a configuration
 (`configs/<name>.json`: the capture's sizes under "scene", the pipeline
-settings under "pipeline", the guarantees the cloud is held to) and a
+settings under "pipeline", the guarantees the cloud is held to), a
 traffic mix (`traffic/<name>.json`: overrides of the pipeline settings,
-such as the density of the cloud). Per-layer metrics are readers
-(`metrics/<name>.py`, a `read(ctx)` that returns a number or None). The
-harness finds all of them by name, so a cell, a configuration or a metric
-is added by adding files.
+such as the density of the cloud) and the cards it takes (`chips`).
+Per-layer metrics are readers (`metrics/<name>.py`, a `read(ctx)` that
+returns a number or None). The harness finds all of them by name, so a
+cell, a configuration or a metric is added by adding files.
 
-A run: set-up (the program and its kernels, one warm-up `densify` on a
-scene of its own, then the cell's `captures` scenes rendered on the
-device and handed over as host arrays, as the CLI's loader hands them),
-then the window: `densepoints_tpu_torch.pmvs.pipeline.densify` on one
-scene after another, in an order drawn from the seed, starting a scene
-while time remains. `captures` is what a window completes today, so every
-run does nearly the same work; a window that outruns it starts the set
-again and says so on standard error. Then the plain reference judges
-every cloud of the window.
+A run: set-up (the program and its kernels, one warm-up call on a scene
+of its own, then the cell's `captures` scenes rendered on the device and
+handed over as host arrays, as the CLI's loader hands them), then the
+window: one call after another, in an order drawn from the seed, starting
+a scene while time remains. `captures` is what a window completes today,
+so every run does nearly the same work; a window that outruns it starts
+the set again and says so on standard error. Then the plain reference
+judges every cloud of the window. A one-card cell calls
+`densepoints_tpu_torch.pmvs.pipeline.densify` in this process
+(`run_cell`); a cell of several cards runs the same steps on every rank
+of a job, calling `densepoints_tpu_torch.parallel.multihost
+.densify_multihost` (`ranks.py`).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import importlib.util
 import json
@@ -140,58 +144,26 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-class _StageSpans:
-    """While active, every `StageMetrics` stage is also a profiler span
-    named stage/<name>, so an idle gap can be labelled by its stage."""
-
-    def __enter__(self):
-        import contextlib
-
-        import torch
-        from densepoints_tpu_torch.utils.logging import StageMetrics
-
-        self._cls, self._orig = StageMetrics, StageMetrics.stage
-        orig = self._orig
-
-        @contextlib.contextmanager
-        def stage(metrics, name):
-            with torch.profiler.record_function(f"stage/{name}"):
-                with orig(metrics, name):
-                    yield
-
-        StageMetrics.stage = stage
-        return self
-
-    def __exit__(self, *exc):
-        self._cls.stage = self._orig
-        return False
-
-
-def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
-             t_process: float, readers=None, window=contextlib.nullcontext):
-    """One run of `cell`; returns (result dict, checks list). `window` is
-    a context manager entered around the timed window alone (the control
-    and the faults of `control.py`: they break the timed path, not the
-    set-up's warm-up)."""
+def set_up(cell: dict, seed: int, device, call):
+    """Set-up: the kernels build (once per checkout), then the first
+    call's one-time work happens in the warm-up, `call(scene, config)` on
+    a scene no timed call sees; then the cell's captures are rendered on
+    `device` and handed over as host arrays. Returns (geometry, config,
+    pool, warm-up seconds)."""
     import torch
     from densepoints_tpu_torch.config import load_config
-    from densepoints_tpu_torch.pmvs.pipeline import densify
 
-    from benchmark import device_trace, judge, scenes
+    from benchmark import scenes
 
     geo = scenes.SceneGeometry.from_config(cell["scene"])
     config = load_config(cell["pipeline"])
-
-    # Set-up: the kernels build (once per checkout), then the first
-    # call's one-time work happens in the warm-up, on a scene no timed
-    # call sees.
     if torch.device(device).type == "cuda":
         from densepoints_tpu_torch.ops import _build
 
         _build.build_library()
     warm = scenes.make_capture(geo, scenes.scene_seed(seed, 0), device)
     t_warm = time.perf_counter()
-    densify(_scene(warm, device), config, device=device)
+    call(_scene(warm, device), config)
     _sync(device)
     t_warm = time.perf_counter() - t_warm
     del warm
@@ -200,35 +172,65 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
             for key in scenes.capture_keys(seed, n_pool)]
     _sync(device)
     gc.collect()
+    return geo, config, pool, t_warm
 
-    prof = None
+
+@dataclasses.dataclass
+class Window:
+    """What the measured window gave: each scene's cloud (position,
+    normal, ref, vis) and host images, each scene's end (seconds from the
+    window's start), the stages' seconds and the counters summed over the
+    scenes, the set-up's seconds, and the stopped profiler (None
+    untraced)."""
+
+    outputs: list = dataclasses.field(default_factory=list)
+    images: list = dataclasses.field(default_factory=list)
+    ends: list = dataclasses.field(default_factory=list)
+    stage_s: dict = dataclasses.field(default_factory=dict)
+    counters: dict = dataclasses.field(default_factory=dict)
+    setup_s: float = 0.0
+    prof: object = None
+
+
+def measure(pool, config, call, seconds: float, trace: bool, device,
+            t_process: float, t_warm: float,
+            window=contextlib.nullcontext, go=bool) -> Window:
+    """The window: `call(scene, config)` on one scene of `pool` after
+    another, in the pool's order, starting a scene while time remains;
+    `go(more)` has the last word on whether another starts (a job's rank
+    0 decides for every rank). Traced under `torch.profiler` when
+    `trace`."""
+    import torch
+
+    from benchmark import device_trace
+
+    n_pool = len(pool)
+    win = Window()
     if trace:
         from torch.profiler import ProfilerActivity, profile
 
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        prof.start()
-        spans = _StageSpans().__enter__()
-    outputs, images, stage_s, counters, ends = [], [], {}, {}, []
+        win.prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+        win.prof.start()
+    outputs, ends = win.outputs, win.ends
     t_start = time.perf_counter()
-    setup_s = t_start - t_process
+    win.setup_s = t_start - t_process
     with window():
-        while not outputs or time.perf_counter() - t_start < seconds:
+        while go(not outputs or time.perf_counter() - t_start < seconds):
             scene = pool[len(outputs) % n_pool]
             with torch.profiler.record_function(device_trace.SCENE_SPAN):
-                res = densify(scene, config, device=device)
+                res = call(scene, config)
                 _sync(device)
             ends.append(time.perf_counter() - t_start)
             p = res.patches
             outputs.append((p.position, p.normal, p.ref, p.vis))
-            images.append(scene.images)
+            win.images.append(scene.images)
             for k, v in res.metrics.times.items():
-                stage_s[k] = stage_s.get(k, 0.0) + v
+                win.stage_s[k] = win.stage_s.get(k, 0.0) + v
             for k, v in res.metrics.counters.items():
-                counters[k] = counters.get(k, 0.0) + float(v)
-    window_s = ends[-1]
-    print(f"[bench] set-up {setup_s:.3f} s (warm-up {t_warm:.3f} s, "
-          f"{n_pool} scenes pooled), window {window_s:.3f} s, "
+                win.counters[k] = win.counters.get(k, 0.0) + float(v)
+    print(f"[bench] set-up {win.setup_s:.3f} s (warm-up {t_warm:.3f} s, "
+          f"{n_pool} scenes pooled), window {ends[-1]:.3f} s, "
           f"{len(outputs)} scenes", file=sys.stderr, flush=True)
     print("[bench] scene seconds: " + " ".join(
         f"{b - a:.3f}" for a, b in zip([0.0] + ends, ends)), file=sys.stderr,
@@ -237,32 +239,53 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
         print(f"[bench] the window outran the cell's {n_pool} captures: "
               f"{len(outputs) - n_pool} scenes were repeats", file=sys.stderr,
               flush=True)
-    if prof is not None:
-        prof.stop()
-        spans.__exit__(None, None, None)
-    n = len(outputs)
-    patches = sum(int(o[0].shape[0]) for o in outputs)
-    peak = (torch.cuda.max_memory_allocated(device)
+    if win.prof is not None:
+        win.prof.stop()
+    return win
+
+
+def peak_bytes(device) -> int:
+    import torch
+
+    return (torch.cuda.max_memory_allocated(device)
             if torch.device(device).type == "cuda" else 0)
-    del pool, res, p
+
+
+def release(device):
+    import torch
+
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
 
+
+def report(cell: dict, geo, win: Window, trace: bool, device, readers,
+           peak: int, count: int = 1):
+    """The result and the checks of a run whose window gave `win`: the
+    end-to-end metrics (untraced) or the per-layer readers' (traced), then
+    every cloud judged by the plain reference."""
+    import torch
+
+    from benchmark import device_trace, judge
+
+    outputs = win.outputs
+    n = len(outputs)
+    window_s = win.ends[-1]
+    patches = sum(int(o[0].shape[0]) for o in outputs)
+    cuda = torch.device(device).type == "cuda"
     dev_info = {
-        "platform": "gpu" if torch.device(device).type == "cuda" else "cpu",
-        "kind": (torch.cuda.get_device_name(device)
-                 if torch.device(device).type == "cuda" else "cpu"),
-        "count": 1,
+        "platform": "gpu" if cuda else "cpu",
+        "kind": torch.cuda.get_device_name(device) if cuda else "cpu",
+        "count": count,
         "memory_peak_bytes": int(peak),
     }
     result = {"correct": False, "attempted": n, "failed": 0, "metrics": {},
               "device": dev_info}
     if trace:
-        tr = device_trace.from_profiler(prof)
-        del prof
+        tr = device_trace.from_profiler(win.prof)
+        win.prof = None
         lo, hi = tr.window()
-        ctx = ReadContext(n, stage_s, counters, tr, (lo, hi))
+        ctx = ReadContext(n, win.stage_s, win.counters, tr, (lo, hi))
         for name, reader in (readers or metric_readers()).items():
             value = reader.read(ctx)
             if value is not None:
@@ -274,14 +297,14 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
         del tr
     else:
         result["metrics"] = {
-            "setup_s": {"value": setup_s, "unit": "s"},
+            "setup_s": {"value": win.setup_s, "unit": "s"},
             "scene_s": {"value": window_s / n, "unit": "s"},
             "patches_per_s": {"value": patches / window_s,
                               "unit": "patches/s"},
         }
 
     t_judge = time.perf_counter()
-    verdicts = judge.judge_run(cell, geo, outputs, images, device)
+    verdicts = judge.judge_run(cell, geo, outputs, win.images, device)
     print(f"[bench] reference {time.perf_counter() - t_judge:.3f} s",
           file=sys.stderr, flush=True)
     result["failed"] = sum(1 for v in verdicts if not v["ok"])
@@ -290,6 +313,27 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
     result["correct"] = result["failed"] == 0 and all(
         c["ok"] for c in checks)
     return result, checks
+
+
+def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
+             t_process: float, readers=None, window=contextlib.nullcontext):
+    """One run of a one-card cell: `densify` in this process; returns
+    (result dict, checks list). `window` is a context manager entered
+    around the timed window alone (the control and the faults of
+    `control.py`: they break the timed path, not the set-up's warm-up).
+    A cell of several cards runs as a job of ranks (`ranks.run_job`)."""
+    from densepoints_tpu_torch.pmvs.pipeline import densify
+
+    def call(scene, config):
+        return densify(scene, config, device=device)
+
+    geo, config, pool, t_warm = set_up(cell, seed, device, call)
+    win = measure(pool, config, call, seconds, trace, device, t_process,
+                  t_warm, window)
+    peak = peak_bytes(device)
+    del pool
+    release(device)
+    return report(cell, geo, win, trace, device, readers, peak)
 
 
 def emit(result: dict, checks: list) -> None:

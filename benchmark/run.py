@@ -10,7 +10,9 @@ reports the per-layer metrics, the device's busy seconds and a breakdown.
 The last line of standard output is the result, a JSON object; the numbers
 the correctness check compared, each beside its limit, are the last lines
 of standard error. A run that finds `jax`, `jaxlib`, `flax` or the JAX
-package loaded once the window has closed names them and exits 3.
+package loaded once the window has closed names them and exits 3. A cell
+of several cards runs as one job of a rank a card (`ranks.py`), started in
+set-up; a rank that fails makes the run exit non-zero with its traceback.
 """
 import time
 
@@ -53,10 +55,19 @@ def main(argv=None, device="cuda", bench_dir=None) -> int:
         print(f"cell {args.workload} needs {cell['chips']} cards, "
               f"{torch.cuda.device_count()} seen", file=sys.stderr)
         return 2
-    result, checks = harness.run_cell(
-        cell, args.seed, args.seconds, bool(args.trace), device, T_PROCESS,
-        readers=harness.metric_readers(bench_dir))
-    found = harness.forbidden_modules(sys.modules)
+    if cell["chips"] > 1:
+        from benchmark import ranks
+
+        result, checks, found = ranks.run_job(
+            cell, args.seed, args.seconds, bool(args.trace), device,
+            T_PROCESS, bench_dir)
+        found = sorted(set(found) | set(harness.forbidden_modules(
+            sys.modules)))
+    else:
+        result, checks = harness.run_cell(
+            cell, args.seed, args.seconds, bool(args.trace), device,
+            T_PROCESS, readers=harness.metric_readers(bench_dir))
+        found = harness.forbidden_modules(sys.modules)
     if found:
         print(f"loaded in the measured process: {', '.join(found)}",
               file=sys.stderr)
