@@ -32,10 +32,12 @@ JAX package's one XLA program per slice. A capture that fails raises; there
 is no eager retry on the card, and no fallback from the kernel step to
 `_step`.
 
-With a `mesh`, each rank holds a row block of the batch and the exit is one
-`all_reduce` of the flag per block, outside the graph: every rank runs
-until the whole (global) batch has converged, as the JAX loop's predicate
-over the global batch does.
+With a `mesh`, each rank holds a row block of the batch and reads its own
+exit flag: it stops once its own lanes have converged or the cap is
+reached, with no collective inside the loop. The JAX loop's predicate runs
+every rank until the whole (global) batch has converged; the steps one
+rank runs past its own exit would change none of its lanes (see above), so
+each row block, and the batch the caller gathers, is the same bitwise.
 
 Profiler spans: `nm/solve` around each call, `nm/capture` around each
 graph's capture; none inside the blocks or around a replay.
@@ -158,22 +160,13 @@ def _block(advance, state, m, max_iterations, tolerance):
     return state, advance.exit_flag(state, max_iterations)
 
 
-def _finished(flag, mesh) -> bool:
-    """Read the exit flag: this rank's, or every rank's with a mesh."""
-    if mesh is None:
-        return bool(flag)
-    from densepoints_tpu_torch.parallel.mesh import all_true
-
-    return all_true(mesh, flag)
-
-
-def _run_eager(advance, state, m, max_iterations, tolerance, mesh):
+def _run_eager(advance, state, m, max_iterations, tolerance):
     """Blocks of `m` steps run eagerly, the exit read after each."""
     global STEPS
     while True:
         state, flag = _block(advance, state, m, max_iterations, tolerance)
         STEPS += m
-        if _finished(flag, mesh):
+        if bool(flag):
             return state
 
 
@@ -207,7 +200,7 @@ def _capture(advance, state, m, max_iterations, tolerance):
     return graph, flag, _build.take_recorded()
 
 
-def _run_graph(advance, state, m, max_iterations, tolerance, mesh):
+def _run_graph(advance, state, m, max_iterations, tolerance):
     """The first block eagerly, then a captured block replayed until the
     exit flag is set. Everything runs on a side stream (a graph cannot be
     captured on the default stream; the eager block warms that stream's
@@ -224,7 +217,7 @@ def _run_graph(advance, state, m, max_iterations, tolerance, mesh):
     with torch.cuda.stream(stream):
         state, flag = _block(advance, state, m, max_iterations, tolerance)
         STEPS += m
-        if not _finished(flag, mesh):
+        if not bool(flag):
             with record_function("nm/capture"):
                 graph, flag, recorded = _capture(advance, state, m,
                                                  max_iterations, tolerance)
@@ -233,7 +226,7 @@ def _run_graph(advance, state, m, max_iterations, tolerance, mesh):
                 GRAPH_REPLAYS += 1
                 STEPS += m
                 _build.count_replay(recorded)
-                if _finished(flag, mesh):
+                if bool(flag):
                     break
     # The graph and its pool go with this frame.
     current.wait_stream(stream)
@@ -261,7 +254,7 @@ def nelder_mead(
       `nm_step.StepObjective` (D = 3) steps through `nm_step.KernelStep`,
       any other callable through `_step`. x0: (B, D); init_step: (D,).
     mesh: a `parallel.mesh.Mesh` when x0 is this rank's row block of a
-      batch split over ranks; the early exit then waits for every rank.
+      batch split over ranks; the rank exits on its own block's flag.
     `_eager` runs the eager blocks on a CUDA device too (the witness the
     graph is held against) and `_block_steps` sets the block size; neither
     is for callers of the pipeline.
@@ -296,7 +289,7 @@ def nelder_mead(
             run = (_run_graph if dev.type == "cuda" and not _eager
                    else _run_eager)
             state = run(advance, state, _block_steps, max_iterations,
-                        tolerance, mesh)
+                        tolerance)
         verts, fvals, _, iters, _ = state
         ib = torch.argmin(fvals, dim=1)
         x_best = torch.take_along_dim(verts, ib[:, None, None],

@@ -4,9 +4,9 @@ collectives.
   * the patch set splits into contiguous row blocks, one per rank
     (`shard_state`); optimization, visibility and the NCC filter are
     patch-parallel, so each rank refines its block with no communication
-    but the Nelder-Mead exit flag (one `all_reduce` per iteration, which
-    keeps the ranks in step) and an `all_gather` that makes the result
-    replicated again (`distributed_refine_step`);
+    (each stops Nelder-Mead on its own block's exit flag) but an
+    `all_gather` that makes the result replicated again
+    (`distributed_refine_step`);
   * occupancy insertion needs global agreement. With replicated grids
     (`distributed_insert`) each rank claims cells for its block of
     candidates by a scatter-min of GLOBAL candidate ids, one

@@ -63,7 +63,6 @@ __all__ = [
     "all_reduce",
     "all_gather",
     "broadcast",
-    "all_true",
 ]
 
 PATCH_AXIS = "patch"
@@ -432,14 +431,3 @@ def broadcast(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
 
     return _collective(mesh, t, run, 1)
 
-
-def all_true(mesh: Mesh, flag: torch.Tensor) -> bool:
-    """Whether a 0-dim bool tensor is True on every rank: one
-    `all_reduce(MIN)` of an int32 flag, read on the host."""
-    if mesh.world_size == 1:
-        return bool(flag)
-    if mesh.backend == "gloo":
-        flag = torch.tensor([int(bool(flag))], dtype=torch.int32)
-    else:
-        flag = flag.to(torch.int32).reshape(1)
-    return bool(all_reduce(mesh, flag, "min").item())

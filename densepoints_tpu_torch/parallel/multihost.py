@@ -28,6 +28,13 @@ and compactions follow replicated vectors, so the N-rank cloud equals the
 may touch any view's pixels for any patch in every Nelder-Mead iteration.
 `parallel/clustered.py` is the driver that splits the images.
 
+Expansion opens the profiler spans of `pmvs/expand.py` (`expand/insert_seeds`,
+then per round `expand/round` around `expand/candidates`, `expand/solve` and
+`expand/insert`; the rescoring is inside the solve's refine step) and adds
+to its counters, so `expand_candidates` and `expand_accepted` are in the
+metrics as `densify` reports them. `rank_threads` is the rank's intra-op
+thread count, so that a run shows the threads it ran under.
+
 Without a mesh, `densify_multihost` runs on this process's rank
 (`global_mesh`: world size 1 outside a job); `mesh=make_mesh()` outside a
 job spans every card, as a job of a rank per card started for the call
@@ -41,6 +48,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from densepoints_tpu_torch.config import PipelineConfig
 from densepoints_tpu_torch.ops import allview_ncc, simplex
@@ -56,6 +64,7 @@ from densepoints_tpu_torch.parallel.mesh import (
     global_mesh,
     initialize_multihost,
 )
+from densepoints_tpu_torch.pmvs import expand
 from densepoints_tpu_torch.pmvs.expand import make_expansion_candidates
 from densepoints_tpu_torch.pmvs.filter import run_filters
 from densepoints_tpu_torch.pmvs.optimize import (
@@ -184,9 +193,8 @@ def _ckpt_stage(ckpt) -> str:
 class _Overhead:
     """Per-run distribution accounting of the expansion rounds: what the
     host pulls from the device (the small replicated vectors), and what
-    the mesh's collectives moved (`MeshTraffic`: the Nelder-Mead exit
-    flags, the refine all-gathers, the win-count all-reduce, and for gloo
-    the device <-> host staging)."""
+    the mesh's collectives moved (`MeshTraffic`: the refine all-gathers,
+    the win-count all-reduce, and for gloo the device <-> host staging)."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
@@ -271,6 +279,8 @@ def densify_multihost(
         else None
     metrics = StageMetrics(sync=sync)
     nm_before, k1_before = simplex.counts(), allview_ncc.counts()
+    expand_before = expand.counts()
+    metrics.count("rank_threads", torch.get_num_threads())
     cameras = scene.cameras.to(dev)
     n_dev = mesh.world_size
     rt = config.runtime
@@ -367,18 +377,19 @@ def densify_multihost(
     def expand_rounds(ops_l, grids_l, state):
         """Seed insertion + wavefront rounds on one pyramid level. Returns
         (the level's accepted patches, their number)."""
-        ids0 = np.arange(state.capacity)
-        accepted, grids_l = ops_l.insert(grids_l, state, ids0)
-        alive, nvis = ops_l.small(state)
-        accepted, alive, nvis = overhead.pull(accepted, alive, nvis)
-        keep = alive & accepted
-        state = ops_l.compact_to(state, keep)
-        total = int(keep.sum())
+        with record_function("expand/insert_seeds"):
+            ids0 = np.arange(state.capacity)
+            accepted, grids_l = ops_l.insert(grids_l, state, ids0)
+            alive, nvis = ops_l.small(state)
+            accepted, alive, nvis = overhead.pull(accepted, alive, nvis)
+            keep = alive & accepted
+            state = ops_l.compact_to(state, keep)
+            total = int(keep.sum())
+            frontier = state
+            f_alive, f_nvis = overhead.pull(*ops_l.small(frontier))
         log.info("multihost: %d seeds inserted", total)
 
         parts = [state]
-        frontier = state
-        f_alive, f_nvis = overhead.pull(*ops_l.small(frontier))
         for round_idx in range(config.expand.max_rounds):
             if total >= config.expand.max_patches:
                 break
@@ -387,26 +398,34 @@ def densify_multihost(
             n_front = int(expandable.sum())
             if n_front == 0:
                 break
-            frontier = ops_l.compact_to(frontier, expandable)
-            cand = ops_l.candidates(frontier)
-            cand = ops_l.refine(cand, config.expand.texture_size, expand_opt)
-            gids = total + np.arange(cand.capacity)
-            accepted, grids_l = ops_l.insert(grids_l, cand, gids)
-            c_alive, _ = ops_l.small(cand)
-            accepted, c_alive = overhead.pull(accepted, c_alive)
-            new_keep = c_alive & accepted
-            n_new = int(new_keep.sum())
+            with record_function("expand/round"):
+                with record_function("expand/candidates"):
+                    frontier = ops_l.compact_to(frontier, expandable)
+                    cand = ops_l.candidates(frontier)
+                with record_function("expand/solve"):
+                    cand = ops_l.refine(cand, config.expand.texture_size,
+                                        expand_opt)
+                with record_function("expand/insert"):
+                    gids = total + np.arange(cand.capacity)
+                    accepted, grids_l = ops_l.insert(grids_l, cand, gids)
+                    c_alive, _ = ops_l.small(cand)
+                    accepted, c_alive = overhead.pull(accepted, c_alive)
+                    new_keep = c_alive & accepted
+                    n_new = int(new_keep.sum())
+                    if n_new:
+                        frontier = ops_l.compact_to(cand, new_keep)
+                        f_alive, f_nvis = overhead.pull(
+                            *ops_l.small(frontier))
+            # make_expansion_candidates: 4 candidates a frontier patch
+            expand.tally(4 * n_front, n_new)
             log.info(
                 "multihost round %d: frontier=%d accepted=%d total=%d",
                 round_idx, n_front, n_new, total + n_new,
             )
             if n_new == 0:
                 break
-            new_patches = ops_l.compact_to(cand, new_keep)
-            parts.append(new_patches)
+            parts.append(frontier)
             total += n_new
-            frontier = new_patches
-            f_alive, f_nvis = overhead.pull(*ops_l.small(frontier))
         return PatchState.concatenate(parts), total
 
     def carried_over(ops_l, state_host):
@@ -473,5 +492,6 @@ def densify_multihost(
 
     simplex.count_since(metrics, nm_before)
     allview_ncc.count_since(metrics, k1_before)
+    expand.count_since(metrics, expand_before)
     log.info("multihost densify done: %s", metrics.summary())
     return DensifyResult(patches=final, metrics=metrics)

@@ -15,8 +15,9 @@ Profiler spans: `expand/insert_seeds`, then per round `expand/round` around
 `expand/candidates` (frontier, candidates, pre-screen), `expand/solve`
 (Nelder-Mead), `expand/rescore` (visibility, NCC filter) and
 `expand/insert` (cells, insertion, compaction). `CANDIDATES` and
-`ACCEPTED` sum the rounds' candidates and accepted patches (`counts`,
-`count_since`).
+`ACCEPTED` sum the rounds' candidates and accepted patches (`tally`,
+`counts`, `count_since`); `parallel/multihost.py`'s rounds open the same
+spans and add to the same counters.
 """
 from __future__ import annotations
 
@@ -43,11 +44,18 @@ from densepoints_tpu_torch.pmvs.patch import PatchState
 from densepoints_tpu_torch.pmvs.visibility import classify_views
 from densepoints_tpu_torch.utils import log
 
-__all__ = ["make_expansion_candidates", "expand_patches", "counts",
+__all__ = ["make_expansion_candidates", "expand_patches", "tally", "counts",
            "count_since"]
 
 CANDIDATES = 0  # candidates optimized, summed over rounds
 ACCEPTED = 0  # candidates inserted, summed over rounds
+
+
+def tally(candidates: int, accepted: int):
+    """Add a round's candidates optimized and patches accepted."""
+    global CANDIDATES, ACCEPTED
+    CANDIDATES += candidates
+    ACCEPTED += accepted
 
 
 def counts() -> dict:
@@ -90,7 +98,6 @@ def expand_patches(
 
     Returns (PatchState with only accepted patches, grids).
     """
-    global CANDIDATES, ACCEPTED
     grid_scale = organizer_config.grid_scale
     min_grids = organizer_config.min_grids_to_accept
     grids = make_grids(
@@ -129,8 +136,7 @@ def expand_patches(
         if out is None:
             break
         new_patches, grids, n_candidates = out
-        CANDIDATES += n_candidates
-        ACCEPTED += new_patches.capacity
+        tally(n_candidates, new_patches.capacity)
         if new_patches.capacity == 0:
             break
         parts.append(new_patches)

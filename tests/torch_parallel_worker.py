@@ -112,8 +112,9 @@ def task_refine(mesh, inp):
 
 def task_nelder_mead(mesh, inp):
     """Nelder-Mead over this rank's rows of a batch of shifted quadratics
-    whose lanes converge at different iterations; the calls of the mesh
-    say how many exit checks this rank made."""
+    whose lanes converge at different iterations; returns the mesh's
+    collective calls inside the solve and the steps this rank ran."""
+    from densepoints_tpu_torch.ops import simplex
     from densepoints_tpu_torch.ops.simplex import nelder_mead
 
     x0 = pmesh.shard_patches(mesh, torch.as_tensor(inp["x0"]))
@@ -123,15 +124,16 @@ def task_nelder_mead(mesh, inp):
     def f(x):
         return (w[:, None, :] * (x - c[:, None, :]) ** 2).sum(-1)
 
-    calls = mesh.traffic.calls
+    calls, steps = mesh.traffic.calls, simplex.STEPS
     x, fb, iters = nelder_mead(f, x0, torch.full((x0.shape[1],), 0.3),
                                max_iterations=int(inp["max_iterations"]),
                                tolerance=1e-6, mesh=mesh)
-    checks = np.int64(mesh.traffic.calls - calls)
+    collectives = np.int64(mesh.traffic.calls - calls)
+    steps = np.int64(simplex.STEPS - steps)
     return {"x": pmesh.all_gather(mesh, x).numpy(),
             "f": pmesh.all_gather(mesh, fb).numpy(),
             "iters": pmesh.all_gather(mesh, iters).numpy(),
-            "exit_checks": checks}
+            "collectives": collectives, "steps": steps}
 
 
 def task_ba(mesh, inp):
@@ -217,6 +219,23 @@ def task_multihost(mesh, inp):
                                     seed_points=pts))
 
 
+def task_multihost_traced(mesh, inp):
+    """`task_multihost` under `torch.profiler` (host activity): the cloud,
+    the counters and the program's spans as (names, starts, ends)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = task_multihost(mesh, inp)
+    spans = [(ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns())
+             for ev in prof.profiler.kineto_results.events()
+             if re.match(r"(stage|expand|nm)/", ev.name())]
+    out["span_names"] = np.asarray([s[0] for s in spans])
+    out["span_bounds"] = np.asarray([s[1:] for s in spans], np.int64)
+    return out
+
+
 def task_densify_distributed(mesh, inp):
     """`densify_distributed` on the plane scene, seeds from its own front
     end."""
@@ -299,7 +318,8 @@ TASKS = {"insert": task_insert, "refine": task_refine,
          "nelder_mead": task_nelder_mead, "ba": task_ba, "seed": task_seed,
          "multihost": task_multihost, "clustered": task_clustered,
          "densify_distributed": task_densify_distributed,
-         "plan": task_plan, "mesh": task_mesh, "cli": task_cli}
+         "plan": task_plan, "mesh": task_mesh, "cli": task_cli,
+         "multihost_traced": task_multihost_traced}
 
 
 def main():
