@@ -3268,34 +3268,43 @@ def _nm_counters(metrics):
 
 
 class _TimedGraph:
-    """A captured graph whose replays are timed: the device's milliseconds
-    between two CUDA events around each replay, and the host's from one
-    replay's start to the next (the enqueue, the counters and the exit
-    read in between: a step's host time when a block is one step)."""
+    """A captured graph whose replays are timed, in the solver call that
+    replays it (the newest of `calls`: a graph kept across calls,
+    `ops.simplex._Solve`, is replayed by later ones): the device's
+    milliseconds between two CUDA events around each replay, and the
+    host's from one replay's start to the next (the enqueue, the counters
+    and the exit read in between: a step's host time when a block is one
+    step). `finish` turns a call's events into times."""
 
-    def __init__(self, graph, call):
-        self.graph, self.call, self.events, self.t = graph, call, [], None
-        call["replay_host_ms"] = []
+    def __init__(self, graph, calls):
+        self.graph, self.calls = graph, calls
+
+    def pool(self):
+        return self.graph.pool()
 
     def replay(self):
         import torch
 
+        call = self.calls[-1]
         now = time.perf_counter()
-        if self.t is not None:
-            self.call["replay_host_ms"].append(1e3 * (now - self.t))
-        self.t = now
+        host = call.setdefault("replay_host_ms", [])
+        if call.get("_t") is not None:
+            host.append(1e3 * (now - call["_t"]))
+        call["_t"] = now
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         self.graph.replay()
         end.record()
-        self.events.append((start, end))
+        call.setdefault("_events", []).append((start, end))
 
-    def finish(self):
-        """After the call, synchronised: the device times; the graph goes."""
-        self.call["replay_device_ms"] = [s.elapsed_time(e)
-                                         for s, e in self.events]
-        self.graph = self.events = None
+    @staticmethod
+    def finish(call):
+        """After the call, synchronised: its replays' device times."""
+        call.pop("_t", None)
+        events = call.pop("_events", [])
+        if events:
+            call["replay_device_ms"] = [s.elapsed_time(e) for s, e in events]
 
 
 @contextlib.contextmanager
@@ -3331,8 +3340,7 @@ def _nm_recorded(torch_step=False, keep_inputs=False, step_times=False,
         calls[-1]["capture_s"] = time.perf_counter() - t0
         if step_times:
             graph, flag, recorded = out
-            calls[-1]["timer"] = _TimedGraph(graph, calls[-1])
-            out = (calls[-1]["timer"], flag, recorded)
+            out = (_TimedGraph(graph, calls), flag, recorded)
         return out
 
     def once_k(images, cameras, state, texture_size, config, mesh=None):
@@ -3352,8 +3360,7 @@ def _nm_recorded(torch_step=False, keep_inputs=False, step_times=False,
         torch.cuda.synchronize()
         calls[-1].update(s=time.perf_counter() - t0,
                          iterations=int(out[2].max()) if len(x0) else 0)
-        if "timer" in calls[-1]:
-            calls[-1].pop("timer").finish()
+        _TimedGraph.finish(calls[-1])
         return out
 
     optimize.nelder_mead, optimize.optimize_patches_once = timed, once_k

@@ -32,7 +32,9 @@ that scored it, and `fold` (after a stage's solve or filter, and in
 `counts`) sums a `vis` the first time it folds it (a caller that changes
 one in place hands a new tensor instead) and adds that sum times its
 calls to a total per texture size; `counts` and `count_since` read the
-totals for `StageMetrics`.
+totals for `StageMetrics`. A caller that scores padded rows (Nelder-Mead's
+cached graphs, `ops/simplex.py`) calls the scorer's `launch`, which counts
+no work, and counts its real rows' with `count_work`.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ __all__ = [
     "ROWS",
     "BYTES",
     "fold",
+    "count_work",
     "counts",
     "count_since",
 ]
@@ -231,6 +234,19 @@ def fold():
     _PENDING.clear()
 
 
+def count_work(vis: torch.Tensor, texture_size: int, calls: int = 1,
+               count=_build.count):
+    """Count `calls` scoring calls over the rows of `vis` (B, V) at
+    `texture_size` through `count` (`_build.count`, or
+    `_build.count_launch` for calls a CUDA graph may replay): `ROWS`,
+    `BYTES` and the visible pairs of `vis`."""
+    B, V = vis.shape
+    if B and calls:
+        count(f"{__name__}:ROWS", calls * B)
+        count(f"{__name__}:BYTES", calls * B * (_ROW_BYTES + _VIEW_BYTES * V))
+        count(_pairs_of(vis, texture_size), calls)
+
+
 def counts() -> dict:
     """K1's work so far, as `count_since` takes it: rows and bytes, and a
     copy of each total of visible pairs (copied on the device, not read)."""
@@ -261,29 +277,31 @@ def count_since(metrics, before: dict):
 
 class _Scorer:
     """score(position, normal, ref, vis) -> (scores, anchor, anchor_ok)
-    with the stack and the cameras bound, counting each call's work."""
+    with the stack and the cameras bound, counting each call's work;
+    `launch` is the call without counting its work."""
 
     def __init__(self, images: torch.Tensor, cameras: Cameras,
                  texture_size: int):
         self.images, self.cameras = images, cameras
         self.texture_size = int(texture_size)
-        if images.device.type != "cpu":
-            # the cameras' contiguous copies, made once
-            self.scene = (images, cameras.K.contiguous(),
-                          cameras.E.contiguous(), cameras.C.contiguous(),
-                          cameras.x_axis.contiguous(), cameras.width,
-                          cameras.height)
+        # the stack and the cameras' contiguous copies, made once: what a
+        # launch reads
+        self.scene = (images, cameras.K.contiguous(),
+                      cameras.E.contiguous(), cameras.C.contiguous(),
+                      cameras.x_axis.contiguous(), cameras.width,
+                      cameras.height)
 
     def __call__(self, position, normal, ref, vis):
-        global PLAIN_CALLS
-        B, V = vis.shape
         plain = self.images.device.type == "cpu"
-        if B:
-            count = _build.count if plain else _build.count_launch
-            count(f"{__name__}:ROWS", B)
-            count(f"{__name__}:BYTES", B * (_ROW_BYTES + _VIEW_BYTES * V))
-            count(_pairs_of(vis, self.texture_size))
-        if plain:
+        count_work(vis, self.texture_size,
+                   count=_build.count if plain else _build.count_launch)
+        return self.launch(position, normal, ref, vis)
+
+    def launch(self, position, normal, ref, vis):
+        """The call without counting its work (`count_work`); a launch of
+        the kernel still counts in `KERNEL_LAUNCHES`."""
+        global PLAIN_CALLS
+        if self.images.device.type == "cpu":
             PLAIN_CALLS += 1
             return allview_scores_plain(
                 self.images, self.cameras, position, normal, ref, vis,

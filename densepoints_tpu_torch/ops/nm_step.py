@@ -5,7 +5,8 @@ The JAX package runs `nelder_mead`'s loop body with the photometric
 objective inside one XLA program, fused around its two Pallas scoring
 calls. Here a step of a `StepObjective` (the parts of
 `pmvs.optimize.photometric_objective_paged`) is five launches on a CUDA
-device, all on buffers that live for one solver call:
+device, all on buffers made once per `KernelStep` (per solver call, or on
+the card per cached solve graph, `ops.simplex._Solve`):
 
   nm_reflect   sort each lane's 4 vertices by f-value (stably), the
                centroid of the best three, the reflection x_r and its pose,
@@ -89,7 +90,9 @@ class StepObjective:
     `ref` (B,) int64 and `vis` (B, V) bool for the scorer, the payload
     views (`payload` (B, V) bool: visible, not the anchor) and their count
     `n_payload` (B,) int64, and `score(position, normal, ref, vis) ->
-    (scores (B, V), anchor, anchor_ok)`, the bound all-views scorer."""
+    (scores (B, V), anchor, anchor_ok)`, the bound all-views scorer
+    (`ops.allview_ncc.allview_scorer`: on the card the solver keys its
+    kept graphs by the scorer's images and cameras)."""
 
     position0: torch.Tensor
     normal0: torch.Tensor
@@ -312,7 +315,7 @@ class KernelStep:
     """One Nelder-Mead step of a `StepObjective`, in place on the solver's
     state (verts (B, 4, 3), fvals (B, 4), done, iters, step): `nm_reflect`,
     the scorer, `nm_contract`, the scorer, `nm_accept`. Its scratch buffers
-    and exit flag are made here, once per solver call, so a CUDA graph of
+    and exit flag are made here, once per step object, so a CUDA graph of
     its steps sees fixed addresses."""
 
     def __init__(self, objective: StepObjective, verts: torch.Tensor):

@@ -32,6 +32,17 @@ JAX package's one XLA program per slice. A capture that fails raises; there
 is no eager retry on the card, and no fallback from the kernel step to
 `_step`.
 
+A solve of a `StepObjective` on the card keeps its graph (`_Solve`): the
+graph is captured on buffers at a bucket capacity (`bucket`: the next
+power of two, at least 256), and a later solve with the same scene,
+texture size, cap, tolerance and bucket copies its lanes into them, pads
+the rest with dead lanes and replays the graph from its first step, with
+no eager block and no capture. A lane's steps do not depend on the other
+lanes (N1-N3 run a thread a lane, K1 a warp a row, and a dead lane never
+clears the exit flag), so every lane ends bitwise as in a graph of its own
+batch. The graphs of a scene share one memory pool and go with its images
+tensor. Any other objective callable captures a graph per call.
+
 With a `mesh`, each rank holds a row block of the batch and reads its own
 exit flag: it stops once its own lanes have converged or the cap is
 reached, with no collective inside the loop. The JAX loop's predicate runs
@@ -45,14 +56,15 @@ graph's capture; none inside the blocks or around a replay.
 from __future__ import annotations
 
 import contextlib
+import weakref
 from typing import Callable
 
 import torch
 from torch.profiler import record_function
 
-from densepoints_tpu_torch.ops import _build, nm_step
+from densepoints_tpu_torch.ops import _build, allview_ncc, nm_step
 
-__all__ = ["nelder_mead", "counts", "count_since"]
+__all__ = ["nelder_mead", "bucket", "counts", "count_since"]
 
 _ALPHA, _GAMMA, _RHO = nm_step.ALPHA, nm_step.GAMMA, nm_step.RHO
 # Steps per block: per captured graph on the card, per exit read anywhere.
@@ -67,8 +79,14 @@ _BLOCK = 2
 # cuBLAS workspace (32 MiB on Hopper, kept for the process's life).
 _STREAMS: dict = {}
 
-GRAPH_CAPTURES = 0  # CUDA graphs captured (one per call that replays)
-GRAPH_REPLAYS = 0  # replays of those graphs
+# Solves of a `StepObjective` kept for the card's later solves, by scene:
+# id(images) -> (weak reference to images, {key: `_Solve`}); an entry goes
+# when its images tensor does.
+_SOLVES: dict = {}
+
+GRAPH_CAPTURES = 0  # CUDA graphs captured
+GRAPH_REUSES = 0  # solves that replayed a graph an earlier solve captured
+GRAPH_REPLAYS = 0  # replays of the graphs
 STEPS = 0  # steps run on the device, eager or replayed, frozen lanes or not
 
 
@@ -77,6 +95,7 @@ def counts() -> dict:
     `nm_kernel_launches` counts the three step kernels' device launches
     together (under a graph, at each replay)."""
     return {"nm_graph_captures": GRAPH_CAPTURES,
+            "nm_graph_reuses": GRAPH_REUSES,
             "nm_graph_replays": GRAPH_REPLAYS, "nm_steps": STEPS,
             "nm_kernel_launches": nm_step.REFLECT_LAUNCHES
             + nm_step.CONTRACT_LAUNCHES + nm_step.ACCEPT_LAUNCHES}
@@ -89,9 +108,21 @@ def count_since(metrics, before: dict):
 
     for name, value in counts().items():
         metrics.count(name, value - before[name])
-    log.info("[nm-graph] captures=%d replays=%d steps=%d "
+    log.info("[nm-graph] captures=%d reuses=%d replays=%d steps=%d "
              "kernel_launches=%d",
              *(metrics.counters[name] for name in before))
+
+
+def bucket(n: int, multiple: int = 1, minimum: int = 256) -> int:
+    """Next power-of-two capacity >= max(n, minimum), padded to a
+    multiple of `multiple` (a mesh's world size). A cached solve's graph
+    serves every batch of its bucket; `densify_multihost`'s buckets fix its
+    batches and the slices cut over them, so that both are the same for
+    every world size."""
+    target = minimum
+    while target < n:
+        target *= 2
+    return -(-target // multiple) * multiple
 
 
 def _step(f, verts, fvals, done, iters, step, max_iterations, tolerance):
@@ -160,9 +191,17 @@ def _block(advance, state, m, max_iterations, tolerance):
     return state, advance.exit_flag(state, max_iterations)
 
 
-def _run_eager(advance, state, m, max_iterations, tolerance):
+def _advance(f, verts):
+    """The step of objective `f`: `nm_step.KernelStep` for a
+    `StepObjective`, else `_TorchStep`."""
+    return (nm_step.KernelStep(f, verts)
+            if isinstance(f, nm_step.StepObjective) else _TorchStep(f))
+
+
+def _run_eager(f, state, m, max_iterations, tolerance):
     """Blocks of `m` steps run eagerly, the exit read after each."""
     global STEPS
+    advance = _advance(f, state[0])
     while True:
         state, flag = _block(advance, state, m, max_iterations, tolerance)
         STEPS += m
@@ -170,16 +209,17 @@ def _run_eager(advance, state, m, max_iterations, tolerance):
             return state
 
 
-def _capture(advance, state, m, max_iterations, tolerance):
-    """One block captured as a CUDA graph (in a pool of its own) that
-    advances `state` in place; returns (graph, exit flag, kernel launches
-    recorded per replay). Raises, naming the cause, if capture fails."""
+def _capture(advance, state, m, max_iterations, tolerance, pool=None):
+    """One block captured as a CUDA graph that advances `state` in place,
+    in `pool` (another graph's `pool()`) or a pool of its own; returns
+    (graph, exit flag, kernel launches recorded per replay). Raises, naming
+    the cause, if capture fails."""
     global GRAPH_CAPTURES
     graph = torch.cuda.CUDAGraph()
     _build.take_recorded()
     # thread_local: a collective library's watchdog thread may query events
     # while this thread captures.
-    graph.capture_begin(capture_error_mode="thread_local")
+    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
     try:
         out, flag = _block(advance, state, m, max_iterations, tolerance)
         for dst, src in zip(state, out):
@@ -200,12 +240,22 @@ def _capture(advance, state, m, max_iterations, tolerance):
     return graph, flag, _build.take_recorded()
 
 
-def _run_graph(advance, state, m, max_iterations, tolerance):
-    """The first block eagerly, then a captured block replayed until the
-    exit flag is set. Everything runs on a side stream (a graph cannot be
-    captured on the default stream; the eager block warms that stream's
-    library state, e.g. its cuBLAS workspace, before the capture)."""
+def _replay(graph, flag, recorded, m):
+    """Replays of `graph` until the exit `flag` is set."""
     global GRAPH_REPLAYS, STEPS
+    while True:
+        graph.replay()
+        GRAPH_REPLAYS += 1
+        STEPS += m
+        _build.count_replay(recorded)
+        if bool(flag):
+            return
+
+
+def _on_side_stream(run, f, state, *limits):
+    """`run(f, state, *limits)` on the card's side stream (a graph cannot
+    be captured on the default stream), after the current stream's work so
+    far and before its next; returns run's state."""
     device = state[0].device
     current = torch.cuda.current_stream(device)
     stream = _STREAMS.get(device.index)
@@ -215,24 +265,142 @@ def _run_graph(advance, state, m, max_iterations, tolerance):
     for t in state:
         t.record_stream(stream)
     with torch.cuda.stream(stream):
-        state, flag = _block(advance, state, m, max_iterations, tolerance)
-        STEPS += m
-        if not bool(flag):
-            with record_function("nm/capture"):
-                graph, flag, recorded = _capture(advance, state, m,
-                                                 max_iterations, tolerance)
-            while True:
-                graph.replay()
-                GRAPH_REPLAYS += 1
-                STEPS += m
-                _build.count_replay(recorded)
-                if bool(flag):
-                    break
-    # The graph and its pool go with this frame.
+        state = run(f, state, *limits)
     current.wait_stream(stream)
     for t in state:
         t.record_stream(current)
     return state
+
+
+def _run_graph(f, state, m, max_iterations, tolerance):
+    """The first block eagerly, then a captured block replayed until the
+    exit flag is set (the eager block warms the stream's library state,
+    e.g. its cuBLAS workspace, before the capture). The graph and its pool
+    go with this frame."""
+    global STEPS
+    advance = _advance(f, state[0])
+    state, flag = _block(advance, state, m, max_iterations, tolerance)
+    STEPS += m
+    if not bool(flag):
+        with record_function("nm/capture"):
+            graph, flag, recorded = _capture(advance, state, m,
+                                             max_iterations, tolerance)
+        _replay(graph, flag, recorded, m)
+    return state
+
+
+class _Solve:
+    """The buffers of `StepObjective` solves at a bucket capacity `Bb`, and
+    once captured, the CUDA graph of a block of steps on them: the
+    objective's parts, the solver's state and a `KernelStep` (its scratch,
+    flag and counters). `load` puts a solve's B <= Bb lanes in `[:B]` and
+    dead lanes in `[B:]` (zeroed: nothing visible, no payload, `done`).
+    `keep` holds what the graph reads of the scene (the images' storage and
+    the cameras' tensors), so that no address it holds is reused while it
+    lives. Its scorer is bound only while a block runs eagerly or is
+    captured (`score`), so that it does not hold the images tensor."""
+
+    def __init__(self, f, Bb, keep):
+        V, dev = f.vis.shape[1], f.vis.device
+        f32, i64, b8 = torch.float32, torch.int64, torch.bool
+
+        def zeros(shape, dtype=f32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.objective = nm_step.StepObjective(
+            zeros((Bb, 3)), zeros((Bb, 3)), zeros((Bb, 3)),
+            zeros((Bb,), i64), zeros((Bb, V), b8), zeros((Bb, V), b8),
+            zeros((Bb,), i64), score=None)
+        self.state = (zeros((Bb, 4, 3)), zeros((Bb, 4)),
+                      torch.ones(Bb, dtype=b8, device=dev),
+                      zeros((Bb,), torch.int32), zeros((), i64))
+        self.advance = nm_step.KernelStep(self.objective, self.state[0])
+        self.keep = keep
+        self.graph = self.recorded = None
+
+    def load(self, f, state):
+        """Lanes `[:B]` from `f`'s parts and `state`, dead lanes after."""
+        B = state[0].shape[0]
+        o = self.objective
+        pairs = [(getattr(o, name), getattr(f, name)) for name in (
+            "position0", "normal0", "C_ref", "ref", "vis", "payload",
+            "n_payload")]
+        for dst, src in pairs + list(zip(self.state[:4], state[:4])):
+            dst[:B].copy_(src)
+            dst[B:].zero_()
+        self.state[2][B:] = True
+        self.state[4].copy_(state[4])
+
+    @contextlib.contextmanager
+    def score(self, f):
+        """`f`'s scorer bound for the block within, its work uncounted."""
+        self.objective.score = f.score.launch
+        try:
+            yield
+        finally:
+            self.objective.score = None
+
+
+def _cached(f, Bb, m, max_iterations, tolerance):
+    """The `_Solve` of objective `f` at capacity `Bb`, made at first use,
+    and the memory pool of its scene's graphs (None before the first).
+    Its key is what its graph bakes in: the scene (`f`'s images tensor and
+    its cameras' tensors, held), the texture size, the view count, `Bb`,
+    the block's steps, the cap, the tolerance and the dtype."""
+    score = f.score
+    images, cameras = score.images, score.cameras
+    camera_tensors = (cameras.K, cameras.E, cameras.C, cameras.x_axis,
+                      cameras.width, cameras.height)
+    key = (tuple(map(id, camera_tensors)), score.texture_size,
+           f.vis.shape[1], Bb, m, int(max_iterations), float(tolerance),
+           f.position0.dtype)
+    scene = _SOLVES.get(id(images))
+    if scene is None:
+        ref = weakref.ref(images, lambda _, i=id(images), solves=_SOLVES:
+                          solves.pop(i, None))
+        scene = _SOLVES[id(images)] = (ref, {})
+    solve = scene[1].get(key)
+    if solve is None:
+        keep = (images.untyped_storage(), camera_tensors, score.scene[1:])
+        solve = scene[1][key] = _Solve(f, Bb, keep)
+    pool = next((s.graph.pool() for s in scene[1].values()
+                 if s.graph is not None), None)
+    return solve, pool
+
+
+def _run_cached(f, state, m, max_iterations, tolerance):
+    """A solve of `StepObjective` `f` through the `_Solve` of its bucket:
+    the first use runs a block eagerly and captures the next, as
+    `_run_graph` does; a later one replays the graph from its first step.
+    Returns the state of the solve's B lanes (copies). K1's work is counted
+    for those lanes alone: every launch scored Bb rows, B of them real.
+    A scene's graphs share one memory pool: what a block allocates lives
+    only inside the block, and the graphs replay one at a time, in stream
+    order, so none reads what another wrote there."""
+    global GRAPH_REUSES, STEPS
+    B = state[0].shape[0]
+    solve, pool = _cached(f, bucket(B), m, max_iterations, tolerance)
+    solve.load(f, state)
+    launches = allview_ncc.KERNEL_LAUNCHES
+    if solve.graph is not None:
+        GRAPH_REUSES += 1
+        _replay(solve.graph, solve.advance.flag, solve.recorded, m)
+    else:
+        with solve.score(f):
+            _, flag = _block(solve.advance, solve.state, m, max_iterations,
+                             tolerance)
+            STEPS += m
+            if not bool(flag):
+                with record_function("nm/capture"):
+                    solve.graph, _, solve.recorded = _capture(
+                        solve.advance, solve.state, m, max_iterations,
+                        tolerance, pool)
+        if solve.graph is not None:
+            _replay(solve.graph, solve.advance.flag, solve.recorded, m)
+    allview_ncc.count_work(f.vis, f.score.texture_size,
+                           allview_ncc.KERNEL_LAUNCHES - launches)
+    return tuple(t[:B].clone() for t in solve.state[:4]) + (
+        solve.state[4].clone(),)
 
 
 def nelder_mead(
@@ -282,14 +450,13 @@ def nelder_mead(
             torch.zeros(B, dtype=torch.int32, device=dev),  # iters
             torch.zeros((), dtype=torch.int64, device=dev),  # step
         )
-        if max_iterations > 0:
-            advance = (nm_step.KernelStep(f, verts)
-                       if isinstance(f, nm_step.StepObjective)
-                       else _TorchStep(f))
-            run = (_run_graph if dev.type == "cuda" and not _eager
-                   else _run_eager)
-            state = run(advance, state, _block_steps, max_iterations,
-                        tolerance)
+        limits = (_block_steps, max_iterations, tolerance)
+        if max_iterations > 0 and (dev.type != "cuda" or _eager):
+            state = _run_eager(f, state, *limits)
+        elif max_iterations > 0:
+            run = (_run_cached if isinstance(f, nm_step.StepObjective)
+                   else _run_graph)
+            state = _on_side_stream(run, f, state, *limits)
         verts, fvals, _, iters, _ = state
         ib = torch.argmin(fvals, dim=1)
         x_best = torch.take_along_dim(verts, ib[:, None, None],

@@ -90,16 +90,6 @@ __all__ = [
 ]
 
 
-def _bucket(n: int, n_dev: int, minimum: int = 256) -> int:
-    """Next power-of-two capacity >= max(n, minimum), padded to a multiple
-    of the world size. The buckets fix the batches and the slices cut over
-    them, so that both are the same for every world size."""
-    target = minimum
-    while target < n:
-        target *= 2
-    return -(-target // n_dev) * n_dev
-
-
 class _ShardedOps:
     """The stages of one pyramid level over the mesh.
 
@@ -154,12 +144,12 @@ class _ShardedOps:
         """`state` on the mesh's device, padded with zeroed dead lanes to a
         bucket capacity."""
         state = state.map(lambda a: a.to(self.mesh.device))
-        return zero_pad(state, _bucket(state.capacity, self.n_dev))
+        return zero_pad(state, simplex.bucket(state.capacity, self.n_dev))
 
     def compact_to(self, st: PatchState, keep: np.ndarray) -> PatchState:
         """The rows where `keep`, in a bucket of zeroed dead lanes."""
         idx = np.nonzero(keep)[0]
-        cap = _bucket(len(idx), self.n_dev)
+        cap = simplex.bucket(len(idx), self.n_dev)
         valid = np.zeros((cap,), bool)
         valid[: len(idx)] = True
         idx_pad = np.zeros((cap,), np.int64)
