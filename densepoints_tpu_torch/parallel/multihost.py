@@ -28,12 +28,11 @@ and compactions follow replicated vectors, so the N-rank cloud equals the
 may touch any view's pixels for any patch in every Nelder-Mead iteration.
 `parallel/clustered.py` is the driver that splits the images.
 
-Expansion opens the profiler spans of `pmvs/expand.py` (`expand/insert_seeds`,
-then per round `expand/round` around `expand/candidates`, `expand/solve` and
-`expand/insert`; the rescoring is inside the solve's refine step) and adds
-to its counters, so `expand_candidates` and `expand_accepted` are in the
-metrics as `densify` reports them. `rank_threads` is the rank's intra-op
-thread count, so that a run shows the threads it ran under.
+Expansion is `pmvs/expand.py`'s `wavefront`, handed `_ShardedOps`: it opens
+the spans and adds to the counters there, so `expand_candidates` and
+`expand_accepted` are in the metrics as `densify` reports them.
+`rank_threads` is the rank's intra-op thread count, so that a run shows the
+threads it ran under.
 
 Without a mesh, `densify_multihost` runs on this process's rank
 (`global_mesh`: world size 1 outside a job); `mesh=make_mesh()` outside a
@@ -48,7 +47,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from densepoints_tpu_torch.config import PipelineConfig
 from densepoints_tpu_torch.ops import allview_ncc, simplex
@@ -91,12 +89,17 @@ __all__ = [
 
 
 class _ShardedOps:
-    """The stages of one pyramid level over the mesh.
+    """The stages of one pyramid level over the mesh, and the wavefront's
+    ops there (`pmvs/expand.py`).
 
     States are replicated and bucket-sized; `refine`, `seed_filter` and
-    `seed_optimize` split them over the ranks (`pmvs.optimize._sliced`)."""
+    `seed_optimize` split them over the ranks (`pmvs.optimize._sliced`).
+    `compact` pulls the replicated keep vector to the host (timed into
+    `overhead`) and gathers its rows into a bucket; `insert` is
+    `viewsharded_insert`."""
 
-    def __init__(self, mesh: Mesh, cameras, images, config, spec, Vp):
+    def __init__(self, mesh: Mesh, cameras, images, config, spec, Vp,
+                 overhead=None):
         self.mesh = mesh
         self.n_dev = mesh.world_size
         self.cams = cameras
@@ -105,10 +108,9 @@ class _ShardedOps:
         self.spec = spec  # the unpadded grid layout (never written)
         self.Vp = Vp
         self.scale = config.organizer.grid_scale
-
-    def small(self, st: PatchState):
-        """(alive, number of visible views as int32), replicated."""
-        return st.alive, st.vis.sum(dim=1).to(torch.int32)
+        self.expand_opt = expand.expand_optimize_config(config.expand,
+                                                        config.optimize)
+        self.overhead = overhead
 
     def take(self, st: PatchState, idx: np.ndarray, valid: np.ndarray):
         """Rows `idx` of `st`. Lanes that are not `valid` are ZEROED, not
@@ -124,15 +126,9 @@ class _ShardedOps:
             torch.zeros_like(a)))
         return dataclasses.replace(out, alive=out.alive & valid_t)
 
-    def candidates(self, st: PatchState) -> PatchState:
-        return make_expansion_candidates(self.cams, st, self.scale)
-
     def _run(self, fn, st, texture_size, config):
         return _sliced(fn, self.images, self.cams, st, texture_size, config,
                        self.mesh)
-
-    def refine(self, st, texture_size, config):
-        return self._run(refine_step_once, st, texture_size, config)
 
     def seed_filter(self, st, texture_size, config):
         return self._run(filter_by_error_once, st, texture_size, config)
@@ -156,6 +152,18 @@ class _ShardedOps:
         idx_pad[: len(idx)] = idx
         return self.take(st, idx_pad, valid)
 
+    def compact(self, st: PatchState, keep: torch.Tensor):
+        keep = self.overhead.pull(st.alive & keep)
+        return self.compact_to(st, keep), int(keep.sum())
+
+    def candidates(self, grids_local, frontier: PatchState, n: int):
+        return make_expansion_candidates(self.cams, frontier, self.scale), \
+            4 * n
+
+    def refine(self, st: PatchState) -> PatchState:
+        return self._run(refine_step_once, st,
+                         self.config.expand.texture_size, self.expand_opt)
+
     def cells(self, position, vis):
         """(P, Vp) candidate cells over all views, the padded views -1."""
         cells = candidate_cells(self.spec, self.cams, position, vis,
@@ -163,8 +171,9 @@ class _ShardedOps:
         V = cells.shape[1]
         return torch.nn.functional.pad(cells, (0, self.Vp - V), value=-1)
 
-    def insert(self, grids_local, st: PatchState, gids: np.ndarray):
+    def insert(self, grids_local, st: PatchState, first_id: int):
         """(accepted (P,) bool replicated, this rank's new grid slice)."""
+        gids = np.arange(first_id, first_id + st.capacity)
         return viewsharded_insert(
             self.mesh, grids_local, self.cells(st.position, st.vis),
             st.alive,
@@ -193,13 +202,13 @@ class _Overhead:
         t = mesh.traffic
         self._start = (t.collective_bytes, t.host_bytes, t.calls, t.seconds)
 
-    def pull(self, *tensors):
-        """The small replicated vectors on the host as numpy, timed."""
+    def pull(self, tensor):
+        """A small replicated vector on the host as numpy, timed."""
         t = time.perf_counter()
-        out = tuple(a.cpu().numpy() for a in tensors)
+        out = tensor.cpu().numpy()
         self.host_sync_s += time.perf_counter() - t
-        self.host_bytes += sum(o.nbytes for o in out)
-        return out if len(out) > 1 else out[0]
+        self.host_bytes += out.nbytes
+        return out
 
     def counters(self) -> dict:
         t = self.mesh.traffic
@@ -324,11 +333,11 @@ def densify_multihost(
     scale = config.organizer.grid_scale
     K = config.organizer.max_patches_per_cell
 
-    def level_ops(images_l, cams_l):
+    def level_ops(images_l, cams_l, overhead=None):
         spec = make_grids(cams_l, scale, K)
         gpad = pad_views(spec, n_dev)
         ops_l = _ShardedOps(mesh, cams_l, images_l, config, spec,
-                            gpad.cells.shape[0])
+                            gpad.cells.shape[0], overhead)
         return ops_l, shard_views(mesh, gpad)
 
     ops, grids_local = level_ops(images, cameras)
@@ -339,8 +348,7 @@ def densify_multihost(
             # Single-host seed semantics: NCC filter -> compact -> optimize.
             state = ops.seed_filter(state, config.seed.texture_size,
                                     config.optimize)
-        alive, _ = ops.small(state)
-        alive = alive.cpu().numpy()
+        alive = state.alive.cpu().numpy()
         state = ops.compact_to(state, alive)
         n_seeds = int(alive.sum())
         if resume_stage != "seeds_optimized" and n_seeds:
@@ -357,66 +365,8 @@ def densify_multihost(
             cameras=cameras,
         )
 
-    overhead = _Overhead(mesh)
-    expand_opt = config.optimize
-    if config.expand.max_iterations > 0:
-        expand_opt = dataclasses.replace(
-            config.optimize, max_iterations=config.expand.max_iterations
-        )
-
-    def expand_rounds(ops_l, grids_l, state):
-        """Seed insertion + wavefront rounds on one pyramid level. Returns
-        (the level's accepted patches, their number)."""
-        with record_function("expand/insert_seeds"):
-            ids0 = np.arange(state.capacity)
-            accepted, grids_l = ops_l.insert(grids_l, state, ids0)
-            alive, nvis = ops_l.small(state)
-            accepted, alive, nvis = overhead.pull(accepted, alive, nvis)
-            keep = alive & accepted
-            state = ops_l.compact_to(state, keep)
-            total = int(keep.sum())
-            frontier = state
-            f_alive, f_nvis = overhead.pull(*ops_l.small(frontier))
-        log.info("multihost: %d seeds inserted", total)
-
-        parts = [state]
-        for round_idx in range(config.expand.max_rounds):
-            if total >= config.expand.max_patches:
-                break
-            expandable = f_alive & (
-                f_nvis >= config.expand.min_visible_views_to_expand)
-            n_front = int(expandable.sum())
-            if n_front == 0:
-                break
-            with record_function("expand/round"):
-                with record_function("expand/candidates"):
-                    frontier = ops_l.compact_to(frontier, expandable)
-                    cand = ops_l.candidates(frontier)
-                with record_function("expand/solve"):
-                    cand = ops_l.refine(cand, config.expand.texture_size,
-                                        expand_opt)
-                with record_function("expand/insert"):
-                    gids = total + np.arange(cand.capacity)
-                    accepted, grids_l = ops_l.insert(grids_l, cand, gids)
-                    c_alive, _ = ops_l.small(cand)
-                    accepted, c_alive = overhead.pull(accepted, c_alive)
-                    new_keep = c_alive & accepted
-                    n_new = int(new_keep.sum())
-                    if n_new:
-                        frontier = ops_l.compact_to(cand, new_keep)
-                        f_alive, f_nvis = overhead.pull(
-                            *ops_l.small(frontier))
-            # make_expansion_candidates: 4 candidates a frontier patch
-            expand.tally(4 * n_front, n_new)
-            log.info(
-                "multihost round %d: frontier=%d accepted=%d total=%d",
-                round_idx, n_front, n_new, total + n_new,
-            )
-            if n_new == 0:
-                break
-            parts.append(frontier)
-            total += n_new
-        return PatchState.concatenate(parts), total
+    # the expansion's distribution overhead, from here on
+    overhead = ops.overhead = _Overhead(mesh)
 
     def carried_over(ops_l, state_host):
         """Patches of a coarser level refined against this level's
@@ -426,8 +376,7 @@ def densify_multihost(
                                     config.optimize)
         state = ops_l.seed_filter(state, config.seed.texture_size,
                                   config.optimize)
-        alive, _ = ops_l.small(state)
-        return ops_l.compact_to(state, alive.cpu().numpy())
+        return ops_l.compact_to(state, state.alive.cpu().numpy())
 
     # Coarse-to-fine levels, the single-host densify_multiscale's
     # semantics: seed insertion and rounds at the coarsest level, then at
@@ -442,18 +391,20 @@ def densify_multihost(
             state_host = state
             for li, lvl in enumerate(range(levels - 1, 0, -1)):
                 images_l, cams_l = pyramid[lvl]
-                ops_l, grids_l = level_ops(images_l, cams_l)
+                ops_l, grids_l = level_ops(images_l, cams_l, overhead)
                 state = (carried_over(ops_l, state_host) if li > 0
                          else ops_l.place(state_host))
                 log.info("multihost multiscale level %d: %dx%d", lvl,
                          int(cams_l.width[0]), int(cams_l.height[0]))
-                full_l, _ = expand_rounds(ops_l, grids_l, state)
+                full_l, _, _ = expand.wavefront(ops_l, state, grids_l,
+                                                config.expand)
                 # Per-level filtering, as on a single host.
                 state_host = run_filters(
                     cams_l, full_l, config.filter, config.optimize, scale,
                 ).compact()
             state = carried_over(ops, state_host)
-        full, total = expand_rounds(ops, grids_local, state)
+        full, _, total = expand.wavefront(ops, state, grids_local,
+                                          config.expand)
     metrics.count("patches_after_expand", total)
     for name, value in overhead.counters().items():
         metrics.count(name, value)

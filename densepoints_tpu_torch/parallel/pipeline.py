@@ -3,9 +3,11 @@
 The single-host driver with its two hot stages swapped for the split
 versions: patch refinement runs on each rank's row block
 (`distributed_refine_step`) and occupancy insertion agrees across ranks by
-the MIN-merge of claims (`distributed_insert`). Host-side orchestration
-(seeding, compaction between rounds, export) is unchanged; seeds come from
-the same deterministic path on every rank.
+the MIN-merge of claims (`distributed_insert`). Expansion is
+`pmvs/expand.py`'s `wavefront` with those two as its `refine` and `insert`
+(`_SplitOps`; compaction on the device, no pre-screen), so it opens
+expansion's spans and reports its counters as `densify` does. Seeds come
+from the same deterministic path on every rank.
 
 `seed_refine_patches_per_sec` in the metrics is the refine rate of the
 seed stage, the ratio a 1-rank and an N-rank run are compared by.
@@ -30,6 +32,7 @@ from densepoints_tpu_torch.parallel.distributed import (
     distributed_refine_step,
 )
 from densepoints_tpu_torch.parallel.mesh import Mesh, make_mesh
+from densepoints_tpu_torch.pmvs import expand
 from densepoints_tpu_torch.pmvs.expand import make_expansion_candidates
 from densepoints_tpu_torch.pmvs.filter import run_filters
 from densepoints_tpu_torch.pmvs.organizer import make_grids
@@ -48,6 +51,34 @@ def _sync(mesh: Mesh):
     if mesh.device.type == "cuda":
         return lambda: torch.cuda.synchronize(mesh.device)
     return None
+
+
+class _SplitOps(expand.DeviceOps):
+    """`densify_distributed`'s wavefront ops: the one-card compaction, the
+    candidates without the pre-screen, refinement on each rank's row block
+    (`config.optimize`'s iterations) and insertion into replicated grids
+    by the MIN-merge of claims."""
+
+    def __init__(self, mesh: Mesh, images, cameras, config: PipelineConfig):
+        super().__init__(images, cameras, config.expand, config.organizer,
+                         config.optimize)
+        self.mesh, self.config = mesh, config
+
+    def candidates(self, grids, frontier, n):
+        return make_expansion_candidates(self.cameras, frontier,
+                                         self.grid_scale), 4 * n
+
+    def refine(self, cand):
+        return distributed_refine_step(
+            self.images, self.cameras, cand, self.texture_size,
+            self.config.optimize, mesh=self.mesh,
+        )
+
+    def insert(self, grids, state, first_id):
+        ids = torch.arange(first_id, first_id + state.capacity,
+                           device=state.position.device)
+        return distributed_insert(self.mesh, grids, self.cameras, state,
+                                  ids, self.config.organizer)
 
 
 def densify_distributed(
@@ -72,6 +103,7 @@ def densify_distributed(
                              config=config)
     metrics = StageMetrics(sync=_sync(mesh))
     nm_before, k1_before = simplex.counts(), allview_ncc.counts()
+    expand_before = expand.counts()
     dev = mesh.device
     cameras = scene.cameras.to(dev)
     images = torch.as_tensor(scene.images, dtype=torch.float32, device=dev)
@@ -96,50 +128,11 @@ def densify_distributed(
         state = refined.compact()
     log.info("seeds surviving distributed refine: %d", n_alive)
 
-    # Wavefront expansion with split refine + collective insertion.
-    grids = make_grids(cameras, config.organizer.grid_scale)
-    accepted, grids = distributed_insert(
-        mesh, grids, cameras, state,
-        torch.arange(state.capacity, device=dev), config.organizer,
-    )
-    state = state.masked(accepted).compact()
-    frontier = state
-
     with metrics.stage("expand"):
-        for round_idx in range(config.expand.max_rounds):
-            if (frontier.capacity == 0
-                    or state.capacity >= config.expand.max_patches):
-                break
-            expandable = frontier.alive & (
-                frontier.num_visible()
-                >= config.expand.min_visible_views_to_expand
-            )
-            frontier = frontier.masked(expandable).compact()
-            if frontier.capacity == 0:
-                break
-            cand = make_expansion_candidates(
-                cameras, frontier, config.organizer.grid_scale
-            )
-            cand = distributed_refine_step(
-                images, cameras, cand, config.expand.texture_size,
-                config.optimize, mesh=mesh,
-            )
-            base = state.capacity
-            gids = base + torch.arange(cand.capacity, device=dev)
-            accepted, grids = distributed_insert(
-                mesh, grids, cameras, cand, gids, config.organizer
-            )
-            new_patches = cand.masked(accepted).compact()
-            log.info(
-                "distributed round %d: frontier=%d accepted=%d total=%d",
-                round_idx, frontier.capacity, new_patches.capacity,
-                base + new_patches.capacity,
-            )
-            if new_patches.capacity == 0:
-                break
-            state = state.concatenate([state, new_patches])
-            frontier = new_patches
-    metrics.count("patches_after_expand", state.capacity)
+        state, _, n = expand.wavefront(
+            _SplitOps(mesh, images, cameras, config), state,
+            make_grids(cameras, config.organizer.grid_scale), config.expand)
+    metrics.count("patches_after_expand", n)
 
     with metrics.stage("filter"):
         state = run_filters(
@@ -157,5 +150,6 @@ def densify_distributed(
 
     simplex.count_since(metrics, nm_before)
     allview_ncc.count_since(metrics, k1_before)
+    expand.count_since(metrics, expand_before)
     log.info("distributed densify done: %s", metrics.summary())
     return DensifyResult(patches=state, metrics=metrics)

@@ -1,23 +1,46 @@
-"""Patch expansion as bulk-synchronous wavefront rounds.
+"""Patch expansion as bulk-synchronous wavefront rounds: one loop for every
+entry point.
 
-  round:  frontier (alive, >= 2 visible views, not yet expanded)
-          -> 4 candidates each (tangent-plane steps of one grid cell)
-          -> optionally the occupancy pre-screen (`expand.prescreen`)
-          -> batched simplex optimization (texture 11)
-          -> batched visibility re-classification + NCC filter
-          -> deterministic bulk grid insertion (scatter-priority dedup)
-          -> accepted candidates are appended and form the next frontier
+`wavefront(ops, seeds, grids, expand_config)` inserts the seeds, then runs
+rounds:
 
-The winner of a contested cell is the lowest candidate index, so a run is
-deterministic for a given input.
+  frontier (alive, >= `min_visible_views_to_expand` visible views)
+  -> 4 candidates a patch (tangent-plane steps of one grid cell)
+  -> refine (Nelder-Mead at the expansion texture, visibility
+     re-classification, NCC filter)
+  -> bulk grid insertion under the ids `total + arange`
+  -> the accepted candidates are appended and form the next frontier
 
-Profiler spans: `expand/insert_seeds`, then per round `expand/round` around
-`expand/candidates` (frontier, candidates, pre-screen), `expand/solve`
-(Nelder-Mead), `expand/rescore` (visibility, NCC filter) and
-`expand/insert` (cells, insertion, compaction). `CANDIDATES` and
-`ACCEPTED` sum the rounds' candidates and accepted patches (`tally`,
-`counts`, `count_since`); `parallel/multihost.py`'s rounds open the same
-spans and add to the same counters.
+until the frontier is empty, `max_patches` patches are in, a round accepts
+nothing, or `max_rounds` rounds have run. The winner of a contested cell is
+the lowest id, so a run is deterministic for a given input.
+
+The loop alone owns the order of the steps, the stop rules, the running
+total and the ids, the counters and the spans: `expand/insert_seeds`, then
+per round `expand/round` around `expand/candidates`, `expand/solve` (around
+`refine`) and `expand/insert`. Each entry point hands it an ops object:
+
+  compact(state, keep) -> (state, n)   the alive rows where `keep` (a (P,)
+                                       bool on the device) first, and how
+                                       many they are
+  candidates(grids, frontier, n) -> (cand, m)
+                                       the candidates of the frontier's n
+                                       rows, and how many are real
+  refine(cand) -> cand                 Nelder-Mead, re-classification, NCC
+                                       filter
+  insert(grids, state, first_id) -> (accepted, grids)
+                                       under the ids first_id +
+                                       arange(capacity)
+
+`DeviceOps` is the one-card ops (`expand_patches`, behind `densify` and
+`densify_multiscale`): it compacts on the device, applies the occupancy
+pre-screen (`expand.prescreen`) in `candidates`, and opens `expand/rescore`
+around the re-classification and the NCC filter, inside `expand/solve`.
+`parallel/multihost.py` and `parallel/pipeline.py` hand the loop their ops
+over a mesh, which open no span of their own.
+
+`CANDIDATES` and `ACCEPTED` sum the rounds' candidates optimized and
+patches accepted (`counts`, `count_since`).
 """
 from __future__ import annotations
 
@@ -44,7 +67,8 @@ from densepoints_tpu_torch.pmvs.patch import PatchState
 from densepoints_tpu_torch.pmvs.visibility import classify_views
 from densepoints_tpu_torch.utils import log
 
-__all__ = ["make_expansion_candidates", "expand_patches", "tally", "counts",
+__all__ = ["make_expansion_candidates", "expand_optimize_config",
+           "wavefront", "DeviceOps", "expand_patches", "counts",
            "count_since"]
 
 CANDIDATES = 0  # candidates optimized, summed over rounds
@@ -86,6 +110,115 @@ def make_expansion_candidates(
     return dataclasses.replace(cand, position=cand.position + offsets)
 
 
+def expand_optimize_config(expand_config: ExpandConfig,
+                           optimize_config: OptimizeConfig) -> OptimizeConfig:
+    """The solver's settings for expansion candidates: `optimize_config`
+    with `expand_config.max_iterations` where that is set."""
+    if expand_config.max_iterations > 0:
+        return dataclasses.replace(
+            optimize_config, max_iterations=expand_config.max_iterations
+        )
+    return optimize_config
+
+
+def wavefront(ops, seeds: PatchState, grids, expand_config: ExpandConfig):
+    """Seed insertion, then rounds until a stop rule. Returns (the accepted
+    patches, grids, their number)."""
+    with record_function("expand/insert_seeds"):
+        accepted, grids = ops.insert(grids, seeds, 0)
+        state, total = ops.compact(seeds, accepted)
+    log.info("expansion: %d seeds inserted", total)
+    frontier, n = state, total
+    parts = [state]
+    for round_idx in range(expand_config.max_rounds):
+        if n == 0 or total >= expand_config.max_patches:
+            break
+        with record_function("expand/round"):
+            with record_function("expand/candidates"):
+                frontier, n_front = ops.compact(
+                    frontier, frontier.num_visible()
+                    >= expand_config.min_visible_views_to_expand)
+                if n_front == 0:
+                    break
+                cand, n_cand = ops.candidates(grids, frontier, n_front)
+            if n_cand == 0:
+                break
+            with record_function("expand/solve"):
+                cand = ops.refine(cand)
+            with record_function("expand/insert"):
+                accepted, grids = ops.insert(grids, cand, total)
+                frontier, n = ops.compact(cand, accepted)
+        tally(n_cand, n)
+        log.info(
+            "expansion round %d: frontier=%d candidates=%d accepted=%d "
+            "total=%d", round_idx, n_front, n_cand, n, total + n,
+        )
+        if n == 0:
+            break
+        parts.append(frontier)
+        total += n
+    return PatchState.concatenate(parts), grids, total
+
+
+class DeviceOps:
+    """The wavefront's ops on one device (see the module docstring)."""
+
+    def __init__(self, images, cameras, expand_config: ExpandConfig,
+                 organizer_config: OrganizerConfig,
+                 optimize_config: OptimizeConfig):
+        self.images, self.cameras = images, cameras
+        self.grid_scale = organizer_config.grid_scale
+        self.min_grids = organizer_config.min_grids_to_accept
+        self.texture_size = expand_config.texture_size
+        self.prescreen = expand_config.prescreen
+        self.optimize_config = expand_optimize_config(expand_config,
+                                                      optimize_config)
+
+    def compact(self, state, keep):
+        # holds a sync: `compact()`, a boolean index, waits for the device
+        state = state.masked(keep).compact()
+        return state, state.capacity
+
+    def candidates(self, grids, frontier, n):
+        cand = make_expansion_candidates(self.cameras, frontier,
+                                         self.grid_scale)
+        if self.prescreen != "off":
+            # Drop candidates that cannot reach min_grids cell wins before
+            # paying for Nelder-Mead, the dominant cost of a round. Holds
+            # syncs: the count and `compact()`.
+            cells = candidate_cells(grids, self.cameras, cand.position,
+                                    cand.vis, self.grid_scale)
+            keep = prescreen_candidates(grids, cells, cand.alive,
+                                        self.min_grids, self.prescreen)
+            n_before = int(cand.alive.sum())
+            cand = cand.masked(keep & cand.alive).compact()
+            log.info("expansion prescreen: %d -> %d candidates", n_before,
+                     cand.capacity)
+        return cand, cand.capacity
+
+    def refine(self, cand):
+        # Holds syncs: Nelder-Mead reads its exit flag once a block.
+        cand = optimize_patches(self.images, self.cameras, cand,
+                                self.texture_size, self.optimize_config)
+        with record_function("expand/rescore"):
+            vis, cnd = classify_views(
+                self.cameras, cand.position, cand.normal, cand.ref,
+                self.optimize_config.visible_angle,
+                self.optimize_config.candidate_angle,
+            )
+            cand = dataclasses.replace(cand, vis=vis, cand=cnd)
+            return filter_by_error(self.images, self.cameras, cand,
+                                   self.texture_size, self.optimize_config)
+
+    def insert(self, grids, state, first_id):
+        cells = candidate_cells(grids, self.cameras, state.position,
+                                state.vis, self.grid_scale)
+        ids = torch.arange(first_id, first_id + state.capacity,
+                           device=state.position.device)
+        return bulk_try_insert(grids, cells, state.alive, ids,
+                               self.min_grids)
+
+
 def expand_patches(
     images: torch.Tensor,
     cameras: Cameras,
@@ -94,125 +227,16 @@ def expand_patches(
     organizer_config: OrganizerConfig = OrganizerConfig(),
     optimize_config: OptimizeConfig = OptimizeConfig(),
 ):
-    """Seed insertion + wavefront expansion.
+    """Seed insertion + wavefront expansion on the device of `images`.
 
     Returns (PatchState with only accepted patches, grids).
     """
-    grid_scale = organizer_config.grid_scale
-    min_grids = organizer_config.min_grids_to_accept
     grids = make_grids(
-        cameras, grid_scale, organizer_config.max_patches_per_cell
+        cameras, organizer_config.grid_scale,
+        organizer_config.max_patches_per_cell,
     )
-    if expand_config.max_iterations > 0:
-        optimize_config = dataclasses.replace(
-            optimize_config, max_iterations=expand_config.max_iterations
-        )
-    dev = seeds.position.device
-
-    # holds a sync: `compact()`, a boolean index, waits for the device
-    with record_function("expand/insert_seeds"):
-        seeds = seeds.compact()
-        cells = candidate_cells(
-            grids, cameras, seeds.position, seeds.vis, grid_scale
-        )
-        accepted, grids = bulk_try_insert(
-            grids, cells, seeds.alive,
-            torch.arange(seeds.capacity, device=dev), min_grids,
-        )
-        state = seeds.masked(accepted).compact()
-    log.info("expansion: %d/%d seeds inserted", state.capacity, seeds.capacity)
-    frontier = state
-    parts = [state]
-    total = state.capacity
-
-    for round_idx in range(expand_config.max_rounds):
-        if frontier.capacity == 0 or total >= expand_config.max_patches:
-            break
-        with record_function("expand/round"):
-            out = _round(
-                images, cameras, frontier, grids, total, round_idx,
-                expand_config, optimize_config, grid_scale, min_grids,
-            )
-        if out is None:
-            break
-        new_patches, grids, n_candidates = out
-        tally(n_candidates, new_patches.capacity)
-        if new_patches.capacity == 0:
-            break
-        parts.append(new_patches)
-        total += new_patches.capacity
-        frontier = new_patches
-
-    return PatchState.concatenate(parts), grids
-
-
-def _round(images, cameras, frontier, grids, total, round_idx,
-           expand_config, optimize_config, grid_scale, min_grids):
-    """One wavefront round from `frontier`: (accepted patches, grids,
-    candidates optimized), or None when no candidate is left to
-    optimize."""
-    dev = frontier.position.device
-    # holds a sync: `compact()` (and the pre-screen's count) waits for the
-    # device
-    with record_function("expand/candidates"):
-        expandable = frontier.alive & (
-            frontier.num_visible()
-            >= expand_config.min_visible_views_to_expand
-        )
-        frontier = frontier.masked(expandable).compact()
-        if frontier.capacity == 0:
-            return None
-        cand = make_expansion_candidates(cameras, frontier, grid_scale)
-        if expand_config.prescreen != "off":
-            # Drop candidates that cannot reach min_grids cell wins before
-            # paying for Nelder-Mead, the dominant cost of a round.
-            pre_cells = candidate_cells(
-                grids, cameras, cand.position, cand.vis, grid_scale
-            )
-            keep = prescreen_candidates(
-                grids, pre_cells, cand.alive, min_grids,
-                expand_config.prescreen,
-            )
-            n_before = int(cand.alive.sum())
-            cand = cand.masked(keep & cand.alive).compact()
-            log.info(
-                "expansion round %d: prescreen %d -> %d candidates",
-                round_idx, n_before, cand.capacity,
-            )
-            if cand.capacity == 0:
-                return None
-    # Optimize at the expansion texture size, then re-classify
-    # visibility and NCC-filter. Holds syncs: Nelder-Mead reads its exit
-    # flag once a block.
-    with record_function("expand/solve"):
-        cand = optimize_patches(
-            images, cameras, cand, expand_config.texture_size,
-            optimize_config,
-        )
-    with record_function("expand/rescore"):
-        vis, cnd = classify_views(
-            cameras, cand.position, cand.normal, cand.ref,
-            optimize_config.visible_angle, optimize_config.candidate_angle,
-        )
-        cand = dataclasses.replace(cand, vis=vis, cand=cnd)
-        cand = filter_by_error(
-            images, cameras, cand, expand_config.texture_size,
-            optimize_config,
-        )
-    # holds a sync: `compact()` waits for the device
-    with record_function("expand/insert"):
-        cells = candidate_cells(
-            grids, cameras, cand.position, cand.vis, grid_scale
-        )
-        accepted, grids = bulk_try_insert(
-            grids, cells, cand.alive,
-            total + torch.arange(cand.capacity, device=dev), min_grids,
-        )
-        new_patches = cand.masked(accepted).compact()
-    log.info(
-        "expansion round %d: frontier=%d candidates=%d accepted=%d "
-        "total=%d",
-        round_idx, frontier.capacity, cand.capacity,
-        new_patches.capacity, total + new_patches.capacity,
-    )
-    return new_patches, grids, cand.capacity
+    ops = DeviceOps(images, cameras, expand_config, organizer_config,
+                    optimize_config)
+    # the ids of the seeds are their rows: first drop the dead ones
+    state, grids, _ = wavefront(ops, seeds.compact(), grids, expand_config)
+    return state, grids
