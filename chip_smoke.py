@@ -60,7 +60,15 @@ no result line:
      and 300 texels (each texels-per-lane layout of the warp bodies and the
      strided one) and at n = 121 in coordinate rows of 123 floats (the
      scalar coordinate loads): scores within 1e-4, textures within 1e-3
-     grey levels, dead slots exactly zero;
+     grey levels, dead slots exactly zero; and M1,
+     `features.matching.hamming_topk_cuda`, against its plain version
+     (`_ranked_hamming` on the card: the f32 GEMM, the N x M passes and
+     `torch.topk`, in the seed stage's chunks of pairs) at the seed
+     stage's shapes, one launch for 32 DTU pairs of 8192 keypoints and 64
+     temple pairs of 4096 (256 bits, k = 2), timed beside its bound (int8
+     products at 1,979 TOPS or the epilogue's integer operations), then
+     untimed at 1024 bits (rows taken in slices) and at 600 bits with
+     k = 1 and 300 x 257 keypoints: idx and dist bitwise equal;
   7. the slot-scoring path: `pmvs.patch_ncc_scores` and the chunked
      `photometric_objective` through the slot kernel ("auto", "fused") and
      through torch gathers + the row-wise NCC kernel ("xla"), held against
@@ -77,8 +85,9 @@ no result line:
      (patch count and radial error checked, pre-screen counts printed);
   10. main path: `densepoints_tpu_torch.cli.main` on a 12-view 512 x 384
      textured-sphere scene written as PNG files + scene JSON, with every
-     launch counter set to 0 just before; checks the counters, the PLY, the
-     patch count and the radial error against the analytic sphere;
+     launch counter set to 0 just before; checks the counters (M1
+     launched once, `seed_match_pairs` counted), the PLY, the patch count
+     and the radial error against the analytic sphere;
   11. the rest of the pipeline, each a CLI run on the sphere with every
      counter set to 0 just before it, K1 launched and no plain call, at
      least 1000 patches and (but for BA) a median radial error under 1.5:
@@ -1029,6 +1038,113 @@ def _slot_tables(label, vis, max_views):
     return chunks
 
 
+# M1 at the seed stage's shapes (name, N, M, D bits, pairs a launch, k,
+# timed): 8192 and 4096 keypoints of 256 bits a view (DTU and temple), then
+# untimed rows past 256 bits (taken in slices) and an awkward k = 1 shape.
+HAMMING_SHAPES = (("dtu_8192", 8192, 8192, 256, 32, 2, True),
+                  ("temple_4096", 4096, 4096, 256, 64, 2, True),
+                  ("wide_d1024", 2048, 1999, 1024, 8, 2, False),
+                  ("awkward_d600_k1", 300, 257, 600, 4, 1, False))
+HAMMING_VIEWS = 16
+# Integer operations of M1's epilogue an entry: the key's IMAD, then the
+# min / max that keep the k smallest (three for k = 2, one for k = 1).
+HAMMING_EPILOGUE_OPS = {1: 2, 2: 4}
+
+
+def _hamming_inputs(N, M, D, P, device, seed):
+    """A stack of +-1 views (int8) with a tenth of the candidates invalid;
+    view v's first queries are near copies of view v + 1's candidates
+    (5% of signs turned), so distances tie and partners are real; pair p
+    matches view p % V against a later view."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def pm1(n):
+        bits = torch.randint(0, 2, (HAMMING_VIEWS, n, D), generator=gen,
+                             device=device)
+        return (2 * bits - 1).to(torch.int8)
+
+    cands, queries = pm1(M), pm1(N)
+    rows = min(N, M)
+    flip = torch.rand((HAMMING_VIEWS, rows, D), generator=gen,
+                      device=device) < 0.05
+    queries[:, :rows] = torch.where(flip, -cands[:, :rows],
+                                    cands[:, :rows]).roll(-1, dims=0)
+    valid = torch.rand((HAMMING_VIEWS, M), generator=gen, device=device) < 0.9
+    a = torch.arange(P, device=device) % HAMMING_VIEWS
+    b = (a + 1 + torch.arange(P, device=device) // HAMMING_VIEWS) % \
+        HAMMING_VIEWS
+    return queries, cands, valid, (a, b)
+
+
+def _hamming_plain(queries, cands, valid, k, pairs):
+    """The plain version on the card, as the seed stage ran it before M1:
+    `_ranked_hamming` (an f32 GEMM, exact on +-1 with TF32 off, the N x M
+    passes and `torch.topk`) over the stage's chunks of pairs."""
+    import torch
+
+    from densepoints_tpu_torch.features import matching
+    from densepoints_tpu_torch.pmvs import seed
+
+    a, b = pairs
+    chunk = seed._pair_chunk(queries.shape[1])
+    parts = [matching._ranked_hamming(
+        queries[a[lo:lo + chunk]].float(), cands[b[lo:lo + chunk]].float(),
+        valid[b[lo:lo + chunk]], k) for lo in range(0, len(a), chunk)]
+    return tuple(torch.cat(t) for t in zip(*parts))
+
+
+def compare_hamming(label, N, M, D, P, k, timed, device):
+    """M1 (`matching.hamming_topk_cuda`, one launch for P pairs) against
+    its plain version: idx and dist bitwise equal, one launch counted and
+    no plain call; timed, both, beside M1's bound (2 N M D int8
+    operations a pair at 1,979 TOPS, or the epilogue's integer operations
+    on the CUDA cores)."""
+    import torch
+
+    from densepoints_tpu_torch.features import matching
+    from densepoints_tpu_torch.scripts import _timing
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the plain version's f32 GEMM would not be exact")
+    queries, cands, valid, pairs = _hamming_inputs(N, M, D, P, device,
+                                                   seed=N + M + D + P)
+
+    def m1():
+        return matching.hamming_topk_cuda(queries, cands, valid, k, pairs)
+
+    before = matching.KERNEL_LAUNCHES, matching.PLAIN_CALLS
+    got = m1()
+    check((matching.KERNEL_LAUNCHES, matching.PLAIN_CALLS)
+          == (before[0] + 1, before[1]),
+          f"[hamming_topk] {label}: not one launch and no plain call")
+    want = _hamming_plain(queries, cands, valid, k, pairs)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("idx", "dist"), got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape
+              and torch.equal(g, w),
+              f"[hamming_topk] {label}: {name} differs from the plain "
+              "version's")
+    line = (f"[hamming_topk] {label}: P={P} N={N} M={M} D={D} k={k} "
+            "bitwise")
+    if not timed:
+        print(line, flush=True)
+        return {"max_abs_err": 0.0}
+    ms = _time_runs({"kernel": m1, "plain": lambda: _hamming_plain(
+        queries, cands, valid, k, pairs)}, reps=5)
+    bound = _timing.int8_bound(2 * P * N * M * D,
+                               HAMMING_EPILOGUE_OPS[k] * P * N * M)
+    print(line + f" kernel_ms={ms['kernel']:.4f} plain_ms={ms['plain']:.4f} "
+          f"bound_ms={bound[0]:.5f} ({bound[1]}), a pair: kernel "
+          f"{ms['kernel'] / P:.5f} plain {ms['plain'] / P:.4f} bound "
+          f"{bound[0] / P:.5f}", flush=True)
+    check(ms["kernel"] >= bound[0],
+          f"[hamming_topk] {label}: {ms['kernel']} ms under the bound "
+          f"{bound[0]}")
+    return _result(0.0, ms, bound)
+
+
 def phase_kernels(device):
     """Every kernel against its plain version; returns per-kernel results
     keyed by shape."""
@@ -1041,7 +1157,11 @@ def phase_kernels(device):
     )
 
     results = {"allview_ncc": {}, "slot_ncc": {}, "ncc_pairs": {},
-               "window_ncc": {}, "window_textures": {}}
+               "window_ncc": {}, "window_textures": {}, "hamming_topk": {}}
+    for label, *shape in HAMMING_SHAPES:
+        results["hamming_topk"][label] = compare_hamming(label, *shape,
+                                                         device)
+    torch.cuda.empty_cache()
     results["window_ncc"]["script"] = compare_window_ncc(
         "script shape", kernel_ablate.script_inputs(device))
     results["window_ncc"]["awkward"] = compare_window_ncc(
@@ -1091,6 +1211,7 @@ def phase_kernels(device):
 
 
 def _counters():
+    from densepoints_tpu_torch.features import matching
     from densepoints_tpu_torch.ops import (
         allview_ncc,
         ncc,
@@ -1101,7 +1222,7 @@ def _counters():
 
     return {"allview_ncc": allview_ncc, "slot_ncc": warp_ncc,
             "ncc_pairs": ncc, "window_ncc": window_ncc,
-            "window_textures": window_textures}
+            "window_textures": window_textures, "hamming_topk": matching}
 
 
 # The Nelder-Mead step kernels of `ops.nm_step`: record name -> counter.
@@ -1432,6 +1553,11 @@ def phase_main_path(device: str):
             flush=True)
         check(len(steps) == 1 and steps.pop() > 0,
               "the main path did not launch each step kernel once a step")
+        pairs = metrics.counters.get("seed_match_pairs", 0)
+        print(f"[main] M1 launches {all_launches['hamming_topk']}, "
+              f"seed_match_pairs {pairs}", flush=True)
+        check(all_launches["hamming_topk"] == 1 and pairs > 0,
+              "the main path did not match its view pairs in one M1 launch")
     check(len(pts) >= 1000, f"only {len(pts)} patches (need >= 1000)")
     check(med < 0.01 * SPHERE_RADIUS,
           f"median radial error {med:.4f} >= {0.01 * SPHERE_RADIUS}")
@@ -3059,6 +3185,11 @@ KERNELS = (
      "no Pallas kernel; XLA's fusion of densepoints_tpu/ops/simplex.py:81-103"
      ", :111-117 (the loop's predicate) and densepoints_tpu/pmvs/"
      "optimize.py:326-335", "sphere_expand1"),
+    # M1 has no Pallas counterpart either: XLA runs the JAX package's
+    # matching as a matrix product and a sort.
+    ("hamming_topk", "densepoints_tpu_torch/csrc/hamming_topk.cu",
+     "no Pallas kernel; XLA's dot_general (bf16) and lax.top_k of "
+     "densepoints_tpu/features/matching.py:36-52", "dtu_8192"),
 )
 
 
@@ -4051,7 +4182,7 @@ def main() -> int:
         phase_seed_variants("cuda")
         (main_launches, main_times, main_pts,
          main_patches, main_result) = phase_main_path("cuda")
-        for name in ("allview_ncc", *NM_KERNELS):
+        for name in ("allview_ncc", *NM_KERNELS, "hamming_topk"):
             launches[name] = main_launches[name]
         results.update(phase_nm_graph("cuda", main_result))
         ba_turned = phase_rest_of_pipeline("cuda", main_pts, main_times,
@@ -4092,7 +4223,10 @@ def main() -> int:
             # clamped row-wise NCC, window-relative sampling with zeros
             # outside the window (`grid_sample` clamps or pads by image,
             # takes no per-slot window and no NCC), or a Nelder-Mead step.
-            "library_ms": None,
+            # M1's plain version is the library's chain (cuBLAS's GEMM,
+            # `torch.topk`).
+            "library_ms": (shown["plain_ms"] if kernel == "hamming_topk"
+                           else None),
         })
     print(smi_line, flush=True)
     print(json.dumps({"kernels": record}), flush=True)

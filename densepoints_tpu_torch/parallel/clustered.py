@@ -45,6 +45,7 @@ import torch
 
 from densepoints_tpu_torch.config import PipelineConfig
 from densepoints_tpu_torch.core.cameras import Cameras
+from densepoints_tpu_torch.features import matching
 from densepoints_tpu_torch.ops import allview_ncc, simplex
 from densepoints_tpu_torch.parallel.clusters import (
     cluster_halos,
@@ -229,6 +230,7 @@ def densify_clustered(
         else None
     metrics = StageMetrics(sync=sync)
     nm_before, k1_before = simplex.counts(), allview_ncc.counts()
+    match_before = matching.counts()
     plan = plan_clusters(cameras, n_clusters or nproc, pid, halo_threshold)
     lv = _LocalViews(cameras, plan)
     if image_loader is not None:
@@ -431,5 +433,6 @@ def densify_clustered(
 
     simplex.count_since(metrics, nm_before)
     allview_ncc.count_since(metrics, k1_before)
+    matching.count_since(metrics, match_before)
     log.info("clustered densify done: %s", metrics.summary())
     return DensifyResult(patches=final, metrics=metrics)

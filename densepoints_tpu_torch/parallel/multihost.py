@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from densepoints_tpu_torch.config import PipelineConfig
+from densepoints_tpu_torch.features import matching
 from densepoints_tpu_torch.ops import allview_ncc, simplex
 from densepoints_tpu_torch.parallel.distributed import (
     pad_views,
@@ -278,7 +279,7 @@ def densify_multihost(
         else None
     metrics = StageMetrics(sync=sync)
     nm_before, k1_before = simplex.counts(), allview_ncc.counts()
-    expand_before = expand.counts()
+    expand_before, match_before = expand.counts(), matching.counts()
     metrics.count("rank_threads", torch.get_num_threads())
     cameras = scene.cameras.to(dev)
     n_dev = mesh.world_size
@@ -434,5 +435,6 @@ def densify_multihost(
     simplex.count_since(metrics, nm_before)
     allview_ncc.count_since(metrics, k1_before)
     expand.count_since(metrics, expand_before)
+    matching.count_since(metrics, match_before)
     log.info("multihost densify done: %s", metrics.summary())
     return DensifyResult(patches=final, metrics=metrics)

@@ -25,6 +25,7 @@ import time
 import torch
 
 from densepoints_tpu_torch.config import PipelineConfig
+from densepoints_tpu_torch.features import matching
 from densepoints_tpu_torch.io.scene import Scene
 from densepoints_tpu_torch.ops import allview_ncc, simplex
 from densepoints_tpu_torch.parallel.distributed import (
@@ -103,7 +104,7 @@ def densify_distributed(
                              config=config)
     metrics = StageMetrics(sync=_sync(mesh))
     nm_before, k1_before = simplex.counts(), allview_ncc.counts()
-    expand_before = expand.counts()
+    expand_before, match_before = expand.counts(), matching.counts()
     dev = mesh.device
     cameras = scene.cameras.to(dev)
     images = torch.as_tensor(scene.images, dtype=torch.float32, device=dev)
@@ -151,5 +152,6 @@ def densify_distributed(
     simplex.count_since(metrics, nm_before)
     allview_ncc.count_since(metrics, k1_before)
     expand.count_since(metrics, expand_before)
+    matching.count_since(metrics, match_before)
     log.info("distributed densify done: %s", metrics.summary())
     return DensifyResult(patches=state, metrics=metrics)

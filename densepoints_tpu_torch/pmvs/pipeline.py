@@ -22,7 +22,7 @@ from densepoints_tpu_torch.ba import (
 )
 from densepoints_tpu_torch.config import PipelineConfig
 from densepoints_tpu_torch.core.cameras import Cameras
-from densepoints_tpu_torch.features import tracks
+from densepoints_tpu_torch.features import matching, tracks
 from densepoints_tpu_torch.io.ply import write_ply
 from densepoints_tpu_torch.io.scene import Scene
 from densepoints_tpu_torch.multiscale import densify_multiscale
@@ -124,6 +124,7 @@ def densify(
     device = torch.device(device)
     nm_before, k1_before = simplex.counts(), allview_ncc.counts()
     expand_before, tracks_before = expand.counts(), tracks.counts()
+    match_before = matching.counts()
     profile_dir = config.runtime.profile_dir
     if not profile_dir:
         result = _densify_inner(scene, config, device)
@@ -143,6 +144,7 @@ def densify(
     allview_ncc.count_since(result.metrics, k1_before)
     expand.count_since(result.metrics, expand_before)
     tracks.count_since(result.metrics, tracks_before)
+    matching.count_since(result.metrics, match_before)
     return result
 
 

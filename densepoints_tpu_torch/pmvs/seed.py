@@ -8,9 +8,11 @@ over the match table where the matching left it); only the one-hop
 assembly of matcher "epipolar_all" runs on the host.
 
 Profiler spans of `generate_seed_points`: `seed/detect`, `seed/describe`,
-`seed/pairs` (the view pairs and their F matrices), `seed/match` (the chunk
-loop), `seed/tracks` (the matches-per-pair log, track assembly) and
-`seed/triangulate` (the DLT, and the points and tracks to the host).
+`seed/pairs` (the view pairs and their F matrices), `seed/match` (on the
+card the Hamming matchers' one launch of M1 for all pairs and one
+epipolar filter; else the chunk loop), `seed/tracks` (the matches-per-pair
+log, track assembly) and `seed/triangulate` (the DLT, and the points and
+tracks to the host).
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ __all__ = [
 ]
 
 _PAIR_CHUNK_BYTES = 2 << 30  # peak per-chunk distance-matrix budget
+_HAMMING = ("hamming_knn", "hamming_absolute")
 
 
 def default_pairs(num_views: int) -> np.ndarray:
@@ -100,7 +103,7 @@ def _detect(images: torch.Tensor, config: MatchingConfig):
 
 
 def _wants_descriptors(config: MatchingConfig) -> bool:
-    return config.matcher in ("hamming_knn", "hamming_absolute")
+    return config.matcher in _HAMMING
 
 
 def _describe(images, xy, config: MatchingConfig):
@@ -187,6 +190,8 @@ def generate_seed_points(
     if mesh is None and _wants_descriptors(config):
         with record_function("seed/describe"):
             desc = _describe(images, xy, config)
+    if desc is not None:  # +-1 as int8 once: M1's operands
+        desc = desc.to(torch.int8)
     # holds a sync: the cameras' `.cpu()` waits for the descriptors
     with record_function("seed/pairs"):
         if pairs is None:
@@ -200,11 +205,12 @@ def generate_seed_points(
 
     def match_chunk(Fc, a, b):
         if matcher == "hamming_knn":
-            m, _ = match_pair(desc[a], desc[b], valid[a], valid[b],
-                              config.lowe_ratio)
+            m, _ = match_pair(desc, desc, valid, valid, config.lowe_ratio,
+                              pairs=(a, b))
         elif matcher == "hamming_absolute":
-            m, _ = match_pair_absolute(desc[a], desc[b], valid[a], valid[b],
-                                       config.max_hamming_distance)
+            m, _ = match_pair_absolute(desc, desc, valid, valid,
+                                       config.max_hamming_distance,
+                                       pairs=(a, b))
         elif matcher == "epipolar":
             return direct_epipolar_pair(
                 Fc, xy[a], xy[b], valid[a], valid[b],
@@ -222,7 +228,9 @@ def generate_seed_points(
     with record_function("seed/match"):
         i1 = torch.as_tensor(pairs[:, 0], dtype=torch.int64, device=dev)
         i2 = torch.as_tensor(pairs[:, 1], dtype=torch.int64, device=dev)
-        chunk = _pair_chunk(xy.shape[1])
+        # M1 keeps the distance matrices out of device memory: one chunk
+        chunk = (max(len(pairs), 1) if matcher in _HAMMING
+                 and dev.type == "cuda" else _pair_chunk(xy.shape[1]))
         parts = [
             match_chunk(F[lo : lo + chunk], i1[lo : lo + chunk],
                         i2[lo : lo + chunk])

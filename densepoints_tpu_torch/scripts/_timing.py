@@ -10,6 +10,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores, published
+INT8_OPS_PER_S = 1979e12  # H100 SXM, dense int8 tensor cores, published
+INT32_OPS_PER_S = 64 * 132 * 1.98e9  # half the f32 lanes, boost clock
 
 
 def cuda_device(name: str) -> torch.device:
@@ -118,6 +120,16 @@ def bound(nbytes: float, flops: float):
     by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     by_ops = 1e3 * flops / F32_FLOPS_PER_S
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def int8_bound(int8_ops: float, int_ops: float):
+    """(bound_ms, bound_by) of a kernel whose products run on the int8
+    tensor cores and whose epilogue runs as integer operations on the
+    CUDA cores: the larger of the two."""
+    by_int8 = 1e3 * int8_ops / INT8_OPS_PER_S
+    by_int = 1e3 * int_ops / INT32_OPS_PER_S
+    return (max(by_int8, by_int),
+            "int8 operations" if by_int8 >= by_int else "integer operations")
 
 
 def nbytes(*tensors) -> int:

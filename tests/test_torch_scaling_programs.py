@@ -125,13 +125,14 @@ def test_scaling_overhead_matches_jax():
     final = want.patches.capacity
     assert final > 50
     assert abs(record["patches"] - final) <= COUNT_RTOL * final
-    # The JAX counters, and the port's fourteen more: the collectives'
+    # The JAX counters, and the port's fifteen more: the collectives'
     # calls and seconds (`MeshTraffic`), the solver's captured CUDA graphs,
     # the solves that reused one, their replays, its steps and its step
     # kernels' launches (`ops.simplex.counts`), K1's work
     # (`ops.allview_ncc.counts`),
-    # expansion's candidates and accepted patches (`pmvs.expand.counts`)
-    # and the rank's intra-op threads.
+    # expansion's candidates and accepted patches (`pmvs.expand.counts`),
+    # the view pairs M1 matched (`features.matching.counts`) and the rank's
+    # intra-op threads.
     extra = set(record["counters"]) - set(want.metrics.counters)
     assert set(want.metrics.counters) <= set(record["counters"])
     assert extra == {"overhead_collective_calls", "overhead_collective_s",
@@ -139,7 +140,8 @@ def test_scaling_overhead_matches_jax():
                      "nm_graph_replays", "nm_steps",
                      "nm_kernel_launches", "k1_rows", "k1_textures",
                      "k1_texels", "k1_bytes", "expand_candidates",
-                     "expand_accepted", "rank_threads"}
+                     "expand_accepted", "seed_match_pairs",
+                     "rank_threads"}
     assert record["mesh_ranks"] == 1
     assert record["model"]["link_bytes_per_s"] == 12.5e9
     assert record["model"]["per_round"]["device_seconds"] > 0

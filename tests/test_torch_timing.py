@@ -22,6 +22,13 @@ def test_bound_is_the_larger_of_bytes_and_operations():
     assert ms == pytest.approx(2.0) and by == "operations"
 
 
+def test_int8_bound_is_the_larger_of_products_and_epilogue():
+    ms, by = _timing.int8_bound(_timing.INT8_OPS_PER_S / 1e3, 1.0)
+    assert ms == pytest.approx(1.0) and by == "int8 operations"
+    ms, by = _timing.int8_bound(1.0, 2 * _timing.INT32_OPS_PER_S / 1e3)
+    assert ms == pytest.approx(2.0) and by == "integer operations"
+
+
 def test_nbytes_counts_every_element_once():
     assert _timing.nbytes(torch.zeros(3, 4), torch.zeros(5, dtype=torch.int64),
                           torch.zeros(2, dtype=torch.bool)) == 48 + 40 + 2
